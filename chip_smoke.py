@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Brings the PyTorch port up on one NVIDIA H100 and checks it end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+  1. the card's name and power limit; build both CUDA kernels from
+     src/repro_torch/csrc (timed);
+  2. each kernel against its plain PyTorch version on the card at the main
+     path's shapes, with its time, the plain version's time, its bound and,
+     for flash prefill, scaled_dot_product_attention's time as a yardstick;
+  3. the main path: Mistral-Small-24B at full width and depth (40 layers,
+     bf16 weights drawn from a seeded torch.Generator) serves 4 requests
+     through LLMEngine; both kernels' launch counts must equal 40 x the model
+     passes that ran them;
+  4. the same architecture cut to 2 layers, f32: the engine's greedy tokens
+     (kernel path) must equal those of the dense plain oracle;
+  5. one JSON line of per-kernel numbers, then the result line.
+The port is imported from src/ next to this file; JAX is never imported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
+            torch.float32: 67e12}         # f32 outside the tensor cores
+# (atol, rtol) of |out - ref| <= atol + rtol * |ref|. Both kernels compute in
+# f32, as the plain versions do; a bf16 output differs from the plain one by
+# its rounding, at most one bf16 step (2^-7 of |ref|), plus f32 arithmetic.
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
+LAYERS = 40
+
+
+def check(cond, msg):
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Median time of one call, from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def compare(out, ref):
+    """Max abs error, and whether |out - ref| <= atol + rtol * |ref|."""
+    atol, rtol = TOL[out.dtype]
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+    return float(err.max()), ok
+
+
+def bound(n_bytes, n_ops, dtype):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def size(t):
+    return t.numel() * t.element_size()
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def paged_case(gen, q_dtype, kv_dtype, timed):
+    from repro_torch.kernels.paged_attention import kernel, ref
+    s, h, kv, d, bs, mb = 4, 32, 8, 128, 16, 256
+    nb = s * mb + 1
+    dev = "cuda"
+    q = torch.randn(s, h, d, generator=gen, device=dev).to(q_dtype)
+    pk = torch.randn(nb, bs, kv, d, generator=gen, device=dev).to(kv_dtype)
+    pv = torch.randn(nb, bs, kv, d, generator=gen, device=dev).to(kv_dtype)
+    bt = torch.randint(0, nb, (s, mb), generator=gen, device=dev,
+                       dtype=torch.int32)
+    lens = torch.randint(1, mb * bs + 1, (s,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = 1                                   # ctx 1 and the full table
+    lens[1] = mb * bs
+    args = (q, pk, pv, bt, lens)
+    out = kernel.paged_attention(*args)
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref.paged_attention_ref(*args))
+    row = {"case": f"paged q={q_dtype} pool={kv_dtype} S={s} H={h} KV={kv} "
+                   f"D={d} BS={bs} MB={mb} ctx={lens.tolist()}",
+           "max_abs_err": err, "ok": ok}
+    if timed:
+        ctx = sum(min(c, mb * bs) for c in lens.tolist())
+        live = ctx * kv * d * 2 * pk.element_size()
+        pages = sum(-(-min(c, mb * bs) // bs) for c in lens.tolist())
+        n_bytes = live + size(q) + size(out) + 4 * pages + size(lens)
+        n_ops = 4 * h * d * ctx
+        row["ms"] = cuda_ms(lambda: kernel.paged_attention(*args))
+        row["plain_ms"] = cuda_ms(lambda: ref.paged_attention_ref(*args))
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, kv_dtype)
+        row["library_ms"] = None     # no single PyTorch call does paged decode
+    return row
+
+
+def visible_pairs(t, window):
+    return sum(min(i + 1, window) if window else i + 1 for i in range(t))
+
+
+def flash_case(gen, dtype, t, window, timed):
+    from repro_torch.kernels.flash_prefill import kernel, ref
+    b, h, kv, d = 1, 32, 8, 128
+    dev = "cuda"
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, t, kv, d, generator=gen, device=dev).to(dtype)
+    out = kernel.flash_prefill(q, k, v, window)
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref.flash_prefill_ref(q, k, v, window))
+    row = {"case": f"flash {dtype} B={b} T={t} H={h} KV={kv} D={d} "
+                   f"window={window}", "max_abs_err": err, "ok": ok}
+    if timed:
+        n_bytes = size(q) + size(k) + size(v) + size(out)
+        n_ops = 4 * d * h * b * visible_pairs(t, window)
+        row["ms"] = cuda_ms(lambda: kernel.flash_prefill(q, k, v, window))
+        row["plain_ms"] = cuda_ms(
+            lambda: ref.flash_prefill_ref(q, k, v, window))
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, dtype)
+        row["library_ms"] = None
+        if window == 0:   # yardstick only; the port never calls it
+            sq = q.transpose(1, 2)
+            sk = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+            sv = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = cuda_ms(
+                lambda: sdpa(sq, sk, sv, is_causal=True))
+    return row
+
+
+def phase_kernels():
+    gen = torch.Generator("cuda").manual_seed(1234)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {
+        "paged_attention": paged_case(gen, bf16, f32, timed=True),
+        "flash_prefill": flash_case(gen, bf16, 1500, 0, timed=True),
+    }
+    others = [paged_case(gen, f32, f32, True), paged_case(gen, bf16, bf16, True),
+              flash_case(gen, bf16, 37, 0, False),
+              flash_case(gen, bf16, 2048, 0, True),
+              flash_case(gen, bf16, 2048, 256, True),
+              flash_case(gen, f32, 1500, 0, True)]
+    for row in list(rows.values()) + others:
+        print("kernel-check " + json.dumps(row))
+        check(row["ok"], f"kernel disagrees with its plain version: {row}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phases 3 and 4: the main path
+# --------------------------------------------------------------------------
+
+def reset_counts():
+    from repro_torch.kernels.flash_prefill import kernel as fp
+    from repro_torch.kernels.paged_attention import kernel as pa
+    pa.paged_attention.launches = 0
+    fp.flash_prefill.launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels.flash_prefill import kernel as fp
+    from repro_torch.kernels.paged_attention import kernel as pa
+    return {"paged_attention": pa.paged_attention.launches,
+            "flash_prefill": fp.flash_prefill.launches}
+
+
+def phase_main_path(cfg):
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    torch.cuda.synchronize()
+    print(f"main-path: {cfg.name} layers={cfg.num_layers} d_model="
+          f"{cfg.d_model} {cfg.param_dtype} weights "
+          f"{sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
+                                block_size=16, max_num_seqs=8,
+                                max_prefill_tokens=512, max_model_len=4096)
+    prompts = serve.make_prompts(cfg.vocab_size, serve.PROMPT_LENS, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs, timing = serve.serve(engine, prompts, serve.NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ex = engine.executor
+    for r, t in zip(reqs, timing):
+        print("main-path request " + json.dumps(
+            {"prompt_len": r.prompt_len, "status": r.status.value, **t,
+             "tokens": r.output_tokens}))
+    n = sum(len(r.output_tokens) for r in reqs)
+    print("main-path " + json.dumps(
+        {"wall_s": wall, "output_tokens": n, "tokens_per_s": n / wall,
+         "decode_steps": ex.decode_steps,
+         "prefill_computes": ex.prefill_computes, "launches": counts,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    check(all(r.status.value == "finished"
+              and len(r.output_tokens) == serve.NEW_TOKENS for r in reqs),
+          "not every request finished with its tokens")
+    check(ex.prefill_computes == len(serve.PROMPT_LENS),
+          f"{ex.prefill_computes} prefill computes")
+    check(counts["paged_attention"] == cfg.num_layers * ex.decode_steps > 0,
+          f"paged-attention launches {counts} vs {ex.decode_steps} steps")
+    check(counts["flash_prefill"] == cfg.num_layers * ex.prefill_computes,
+          f"flash-prefill launches {counts} vs {ex.prefill_computes}")
+    # the output itself: finite logits of the expected shape
+    toks = torch.tensor(prompts[0], device="cuda")[None]
+    logits, _ = api.prefill_fn(params, cfg, {"tokens": toks})
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    return counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def oracle_generate(cfg, params, prompt, n_new):
+    """Greedy tokens from the dense path with plain attention: prefill with
+    chunked_causal_mha, then dense-cache decode (the counterpart of the JAX
+    tests' oracle_generate)."""
+    from repro_torch.models import api
+    from repro_torch.models import common as cm
+    toks = torch.tensor(prompt, device="cuda")[None]
+    logits, cache = api.prefill_fn(params, cfg, {"tokens": toks},
+                                   attention=cm.plain_prefill_attention)
+    cache = api.pad_cache(cfg, cache, len(prompt) + n_new + 8)
+    out = [int(logits[0].argmax())]
+    for i in range(n_new - 1):
+        pos = torch.tensor([len(prompt) + i], device="cuda")
+        logits, cache = api.decode_fn(
+            params, cfg, torch.tensor([out[-1]], device="cuda"), cache, pos)
+        out.append(int(logits[0].argmax()))
+    return out
+
+
+def phase_oracle(cfg):
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                             "cuda")
+    engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
+                                block_size=16, max_num_seqs=8,
+                                max_prefill_tokens=512, max_model_len=4096)
+    prompts = serve.make_prompts(cfg.vocab_size, serve.PROMPT_LENS, seed=1)
+    reset_counts()
+    reqs, _ = serve.serve(engine, prompts, serve.NEW_TOKENS)
+    counts = read_counts()
+    oracle = [oracle_generate(cfg, params, p, serve.NEW_TOKENS)
+              for p in prompts]
+    same = [r.output_tokens == o for r, o in zip(reqs, oracle)]
+    print("oracle " + json.dumps({"layers": cfg.num_layers,
+                                  "dtype": cfg.param_dtype, "equal": same,
+                                  "launches": counts}))
+    check(all(same), "kernel path and plain oracle disagree on tokens")
+    check(all(counts.values()), f"kernel path did not launch: {counts}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)}")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    rows = phase_kernels()
+
+    cfg = configs.get("mistral-small-24b")
+    check(cfg.num_layers == LAYERS, "mistral-small-24b is not 40 layers")
+    counts = phase_main_path(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_oracle(dataclasses.replace(cfg, num_layers=2,
+                                     param_dtype="float32"))
+
+    sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention/"
+                                   "kernel.py:28"),
+               "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                 "src/repro/kernels/flash_prefill/"
+                                 "kernel.py:28")}
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": counts[name],
+                "max_abs_err": rows[name]["max_abs_err"],
+                "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+                "bound_ms": rows[name]["bound_ms"],
+                "bound_by": rows[name]["bound_by"],
+                "library_ms": rows[name]["library_ms"]}
+               for name, (src, rep) in sources.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

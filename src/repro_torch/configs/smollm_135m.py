@@ -1,0 +1,10 @@
+"""smollm-135m [dense] — llama-arch small. [hf:HuggingFaceTB/SmolLM-135M; hf]"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m", family="dense",
+    num_layers=30, d_model=576, num_heads=9, num_kv_heads=3,
+    d_ff=1536, vocab_size=49_152, head_dim=64,
+    rope_theta=10_000.0, tie_embeddings=True,
+    param_dtype="bfloat16",
+)

@@ -1,0 +1,258 @@
+"""Continuous-batching FCFS scheduler (vLLM-style, §3.1.1).
+
+Semantics reproduced from vLLM v0.10 (the version the paper deploys):
+  * first-come-first-served admission; head-of-queue blocks when the system
+    is saturated — this is exactly what produces the paper's queue-time
+    signal that drives autoscaling (§3.3);
+  * prefill-prioritized continuous batching with chunked prefill (one chunk
+    of at most `max_prefill_tokens` per step);
+  * decode steps batch every running sequence (one token each) up to
+    `max_num_seqs` fixed slots (TPU adaptation: static decode batch);
+  * preemption under KV-block pressure: the most recently admitted running
+    sequence is evicted (blocks released, request re-queued at the FRONT,
+    restart-from-scratch recompute policy, like vLLM's RECOMPUTE mode).
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+from repro_torch.engine.kv_cache import BlockAllocator, OutOfBlocks, SequenceKV
+from repro_torch.engine.request import Request, RequestStatus
+
+
+@dataclass(eq=False)  # identity semantics: hashable, usable in sets
+class RunningSeq:
+    req: Request
+    kv: SequenceKV
+    slot: int
+    prefill_pos: int = 0          # tokens of the prompt already prefilled
+    admitted_at: float = 0.0
+
+    @property
+    def prompt_done(self) -> bool:
+        return self.prefill_pos >= self.req.prompt_len
+
+
+@dataclass
+class ScheduleOutput:
+    kind: str                      # "mixed" | "idle"
+    prefills: list = field(default_factory=list)  # [(RunningSeq, (s, e))]
+    decode: list = field(default_factory=list)    # list[RunningSeq]
+    preempted: list = field(default_factory=list)
+
+
+#: engine phase specialisation (disaggregated serving, repro.core.disagg):
+#: a prefill-only engine runs requests to their first token then exports a
+#: KVHandoff; a decode-only engine imports handoffs and continues decoding.
+PHASE_MODES = ("unified", "prefill_only", "decode_only")
+
+
+class Scheduler:
+    def __init__(self, allocator: BlockAllocator, max_num_seqs: int = 64,
+                 max_prefill_tokens: int = 2048, max_model_len: int = 8192,
+                 phase_mode: str = "unified"):
+        assert phase_mode in PHASE_MODES, phase_mode
+        self.alloc = allocator
+        self.max_num_seqs = max_num_seqs
+        self.max_prefill_tokens = max_prefill_tokens
+        self.max_model_len = max_model_len
+        self.phase_mode = phase_mode
+        self.waiting: deque[Request] = deque()
+        self.running: list[RunningSeq] = []
+        self.free_slots = list(range(max_num_seqs - 1, -1, -1))
+        # head-of-queue admissions refused for lack of free KV blocks —
+        # the HBM-pressure signal the kvstore tiers are meant to relieve
+        self.admission_blocked = 0
+
+    # ------------------------------------------------------------------
+    def add_request(self, req: Request, now: float):
+        # the decode hop of a disaggregated request keeps its original
+        # arrival (ttft/e2el span both hops); only the local enqueue time
+        # feeding the queue-time autoscaler signal is reset
+        if req.handoff is None and not req.output_tokens:
+            req.metrics.arrival_time = now
+        req.metrics.last_enqueue_time = now
+        req.status = RequestStatus.WAITING
+        if req.trace is not None:
+            # one engine.queue span per hop (the decode hop of a
+            # disaggregated request gets its own, a sibling of the first)
+            req.trace.start_span(
+                "engine.queue", now,
+                phase="decode" if (req.handoff is not None
+                                   or req.output_tokens) else "prefill")
+        self.waiting.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def queue_time_of_head(self, now: float) -> float:
+        """The autoscaler's signal: how long the FCFS head has waited at
+        THIS engine (a resumed decode hop does not drag its prefill-hop
+        wait into the local signal)."""
+        if not self.waiting:
+            return 0.0
+        return self.waiting[0].metrics.waited(now)
+
+    # ------------------------------------------------------------------
+    def _try_admit(self, now: float) -> Optional[RunningSeq]:
+        if not self.waiting or not self.free_slots:
+            return None
+        req = self.waiting[0]
+        total = req.prompt_len + req.target_len()
+        if (total > self.max_model_len
+                or -(-total // self.alloc.block_size) > self.alloc.num_blocks):
+            # reject outright (gateway-level validation usually catches this)
+            self.waiting.popleft()
+            req.status = RequestStatus.FAILED
+            if req.trace is not None:
+                req.trace.close_span("engine.queue", now, status="error",
+                                     reason="over_model_len")
+            return self._try_admit(now)
+        kv = SequenceKV(self.alloc)
+        # match_prefix consults the tier hierarchy transparently: demoted
+        # blocks are promoted back into HBM (free blocks permitting)
+        # before the chunk below is charged against the free pool
+        covered = kv.match_prefix(req.prompt_tokens)
+        first_chunk = min(self.max_prefill_tokens, req.prompt_len - covered)
+        if kv.blocks_needed(first_chunk) > self.alloc.num_free():
+            kv.release()
+            self.admission_blocked += 1
+            return None  # head-of-queue blocks: strict FCFS
+        self.waiting.popleft()
+        seq = RunningSeq(req, kv, self.free_slots.pop(), prefill_pos=covered,
+                         admitted_at=now)
+        if req.metrics.first_scheduled_time is None:
+            req.metrics.first_scheduled_time = now
+        req.metrics.last_scheduled_time = now
+        req.status = RequestStatus.RUNNING
+        if req.trace is not None:
+            req.trace.close_span("engine.queue", now)
+            # a resumed decode hop (or a preempted-and-readmitted decode)
+            # goes straight to decoding; everything else prefills first
+            if req.output_tokens:
+                req.trace.start_span("engine.decode", now, resumed=True)
+            else:
+                req.trace.start_span("engine.prefill", now,
+                                     cached_tokens=covered)
+        self.running.append(seq)
+        return seq
+
+    def _preempt_latest(self, now: float, exclude=()) -> Optional[RunningSeq]:
+        """Evict the most recently admitted running sequence."""
+        candidates = [s for s in self.running if s not in exclude]
+        if not candidates:
+            return None
+        victim = max(candidates, key=lambda s: s.admitted_at)
+        self.running.remove(victim)
+        victim.kv.release()
+        self.free_slots.append(victim.slot)
+        victim.req.status = RequestStatus.PREEMPTED
+        victim.req.metrics.preemptions += 1
+        victim.req.output_tokens = []   # RECOMPUTE policy: restart
+        if victim.req.trace is not None:
+            # the RECOMPUTE re-run shows up as sibling spans, not a
+            # silent rewrite of the evicted ones
+            victim.req.trace.close_span("engine.decode", now,
+                                        status="preempted")
+            victim.req.trace.close_span("engine.prefill", now,
+                                        status="preempted")
+            victim.req.trace.start_span("engine.queue", now,
+                                        phase="prefill", preempted=True)
+        self.waiting.appendleft(victim.req)
+        return victim
+
+    # ------------------------------------------------------------------
+    def schedule(self, now: float) -> ScheduleOutput:
+        """vLLM v1-style mixed continuous batching: every step packs ALL
+        decodable sequences (one token each) plus at most one prefill chunk
+        under the shared token budget — decodes never starve behind the
+        prefill queue."""
+        preempted = []
+
+        # 1) decode everything running (one token each), oldest first;
+        #    under block pressure evict newest-first (never one already
+        #    granted a token this step)
+        decodable = sorted((s for s in self.running if s.prompt_done),
+                           key=lambda x: x.admitted_at)
+        ready = []
+        for s in decodable:
+            if s not in self.running:
+                continue  # preempted earlier this step
+            granted = False
+            while True:
+                try:
+                    s.kv.append_tokens(
+                        1, token_ids=s.req.prompt_tokens + s.req.output_tokens)
+                    granted = True
+                    break
+                except OutOfBlocks:
+                    victim = self._preempt_latest(now, exclude=tuple(ready))
+                    if victim is None:
+                        break
+                    preempted.append(victim)
+                    if victim is s:
+                        break  # evicted ourselves; move on
+            if granted:
+                ready.append(s)
+        ready.sort(key=lambda s: s.slot)
+
+        # 2) pack prefill chunks (multiple prompts) from the remaining
+        #    token budget — vLLM packs prompts until max_num_batched_tokens
+        budget = self.max_prefill_tokens - len(ready)
+        prefills = []
+        while budget > 0:
+            s = next((r for r in self.running if not r.prompt_done
+                      and all(r is not p for p, _ in prefills)), None)
+            if s is None:
+                s = self._try_admit(now)
+            if s is None:
+                break
+            # leapfrog over blocks sealed by other sequences meanwhile
+            if s.prefill_pos == s.kv.num_tokens:
+                s.prefill_pos = s.kv.extend_match(s.req.prompt_tokens)
+            start = s.prefill_pos
+            end = min(start + budget, s.req.prompt_len)
+            ok = True
+            while True:
+                try:
+                    s.kv.append_tokens(end - start,
+                                       token_ids=s.req.prompt_tokens[:end])
+                    break
+                except OutOfBlocks:
+                    victim = self._preempt_latest(
+                        now, exclude=(s,) + tuple(ready)
+                        + tuple(p for p, _ in prefills))
+                    if victim is None:
+                        ok = False
+                        break
+                    preempted.append(victim)
+            if not ok or end <= start:
+                break
+            s.prefill_pos = end
+            prefills.append((s, (start, end)))
+            budget -= end - start
+
+        if not prefills and not ready:
+            return ScheduleOutput("idle", preempted=preempted)
+        return ScheduleOutput("mixed", prefills=prefills,
+                              decode=ready, preempted=preempted)
+
+    # ------------------------------------------------------------------
+    def finish_seq(self, seq: RunningSeq, status=RequestStatus.FINISHED):
+        seq.kv.release()
+        if seq in self.running:
+            self.running.remove(seq)
+        self.free_slots.append(seq.slot)
+        seq.req.status = status
+
+    # metrics -----------------------------------------------------------
+    def kv_utilization(self) -> float:
+        return self.alloc.utilization
+
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    def num_running(self) -> int:
+        return len(self.running)

@@ -1,0 +1,113 @@
+"""Dense decoder-only transformer (GQA, RoPE, SwiGLU, optional qk-norm) in
+PyTorch: the serving counterpart of ``repro/models/transformer.py``.
+
+Parameters keep the JAX tree: per-layer leaves are stacked on a leading layer
+axis, and a Python loop over that axis takes the place of ``lax.scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import common as cm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cpu"):
+    """Random weights drawn from ``generator`` (which must live on
+    ``device``): normal with std fan_in^-0.5 for projections, 0.02 for the
+    token embedding, ones for norm scales, as the JAX initializer does."""
+    dtype = _DTYPES[cfg.param_dtype]
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.num_layers
+
+    def normal(shape, std):
+        t = torch.empty(shape, dtype=dtype, device=device)
+        return t.normal_(0.0, std, generator=generator)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    attn = {
+        "wq": normal((n, d, cfg.num_heads, hd), d ** -0.5),
+        "wk": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
+        "wv": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
+        "wo": normal((n, cfg.num_heads, hd, d), (cfg.num_heads * hd) ** -0.5),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = ones((n, hd))
+        attn["k_norm"] = ones((n, hd))
+    embedding = {"tok": normal((cfg.vocab_size, d), 0.02)}
+    if not cfg.tie_embeddings:
+        embedding["unembed"] = normal((d, cfg.vocab_size), d ** -0.5)
+    return {
+        "embedding": embedding,
+        "layers": {
+            "attn": attn,
+            "mlp": {
+                "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
+                "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
+                "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
+            },
+            "ln1": ones((n, d)),
+            "ln2": ones((n, d)),
+        },
+        "final_norm": ones((d,)),
+    }
+
+
+def layer(layers, i: int):
+    """Layer ``i``'s slice of the stacked layer tree (views, no copies)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# --------------------------------------------------------------------------
+# serving: dense-cache prefill / decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu"):
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill(params, cfg: ModelConfig, tokens, attention=None):
+    """Full prefill pass over tokens (B, T). Returns (last-token logits
+    (B, V), cache {"k", "v": (L, B, T, KV, D)}). ``attention`` is passed to
+    ``common.attention_prefill`` (default: the flash-prefill op)."""
+    x = cm.embed(params["embedding"], tokens)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, k, v = cm.attention_prefill(lp["attn"], cfg, h, attention)
+        x = x + a
+        h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + cm.mlp(lp["mlp"], h)
+        ks.append(k)
+        vs.append(v)
+    x = cm.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = cm.unembed(params["embedding"], x)[:, 0]
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
+    """tokens: (B,) next input token; pos: (B,) int64, its absolute position.
+    Updates the dense cache in place. Returns (logits (B, V), cache)."""
+    x = cm.embed(params["embedding"], tokens[:, None])
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _, _ = cm.attention_decode(lp["attn"], cfg, h, cache["k"][i],
+                                      cache["v"][i], pos)
+        x = x + a
+        h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + cm.mlp(lp["mlp"], h)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cm.unembed(params["embedding"], x)[:, 0], cache

@@ -1,0 +1,202 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card. Marked ``cuda``; each test skips without a CUDA device. Run on
+a machine with an H100 (JAX need not be installed there):
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda -q \
+        tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+# (atol, rtol). Kernels and plain versions both compute in f32; a bf16
+# output differs by its rounding, at most one bf16 step (2^-7 of |ref|).
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 8e-3)}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def _close(out, ref, tol):
+    atol, rtol = tol
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def _paged(gen, s, h, kv, d, bs, mb, q_dtype, kv_dtype):
+    nb = s * mb + 1
+    q = torch.randn(s, h, d, generator=gen, device="cuda").to(q_dtype)
+    pk = torch.randn(nb, bs, kv, d, generator=gen, device="cuda").to(kv_dtype)
+    pv = torch.randn(nb, bs, kv, d, generator=gen, device="cuda").to(kv_dtype)
+    bt = torch.randint(0, nb, (s, mb), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lens = torch.randint(1, mb * bs + 1, (s,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return q, pk, pv, bt, lens
+
+
+DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("s,h,kv,d,bs,mb", [
+    (4, 8, 2, 128, 16, 8),
+    (2, 4, 4, 64, 32, 4),
+    (3, 9, 3, 64, 16, 5),       # GQA ratio 3
+    (1, 16, 1, 128, 32, 16),    # MQA, QPK 16
+    (5, 8, 8, 96, 16, 3),       # head_dim 96
+    (2, 32, 8, 128, 16, 256),   # the main path's shape
+])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16", "bf16q_f32kv"])
+def test_paged_attention_kernel_matches_plain(s, h, kv, d, bs, mb, dtypes,
+                                              gen):
+    from repro_torch.kernels.paged_attention import kernel, ref
+    args = _paged(gen, s, h, kv, d, bs, mb, *dtypes)
+    before = kernel.paged_attention.launches
+    out = kernel.paged_attention(*args)
+    assert kernel.paged_attention.launches == before + 1
+    _close(out, ref.paged_attention_ref(*args), TOL[dtypes[0]])
+
+
+def test_paged_attention_never_reads_past_the_context(gen):
+    """Block 0 is an ordinary block: zero-padded table slots point at it.
+    Poison every block the live pages do not use, block 0 included; the
+    kernel must not read them."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    s, h, kv, d, bs, mb = 3, 8, 2, 64, 16, 8
+    q, pk, pv, _, _ = _paged(gen, s, h, kv, d, bs, mb, torch.float32,
+                             torch.float32)
+    lens = torch.tensor([1, 17, 40], device="cuda", dtype=torch.int32)
+    bt = torch.zeros((s, mb), device="cuda", dtype=torch.int32)
+    live = {1: [5], 2: [6, 7], 3: [8, 9, 10]}   # pages per sequence
+    for i, n in enumerate(lens.tolist()):
+        pages = -(-n // bs)
+        bt[i, :pages] = torch.tensor(live[pages], dtype=torch.int32)
+    expect = ref.paged_attention_ref(q, pk, pv, bt, lens)
+    used = torch.zeros(pk.shape[0], dtype=torch.bool, device="cuda")
+    used[[5, 6, 7, 8, 9, 10]] = True
+    pk[~used] = float("nan")
+    pv[~used] = float("nan")
+    for i, n in enumerate(lens.tolist()):                 # the ragged tail
+        pages = -(-n // bs)
+        blk, off = live[pages][-1], n - (pages - 1) * bs
+        pk[blk, off:] = float("nan")
+        pv[blk, off:] = float("nan")
+    out = kernel.paged_attention(q, pk, pv, bt, lens)
+    _close(out, expect, TOL[torch.float32])
+
+
+def test_paged_attention_zero_context_gives_zeros(gen):
+    """ctx = 0 reads nothing and returns zeros, as the Pallas kernel does."""
+    from repro_torch.kernels.paged_attention import kernel
+    args = list(_paged(gen, 2, 4, 2, 64, 16, 2, torch.float32, torch.float32))
+    args[4] = torch.zeros(2, dtype=torch.int32, device="cuda")
+    out = kernel.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+
+
+def test_paged_attention_kernel_rejects_bad_inputs(gen):
+    from repro_torch.kernels.paged_attention import kernel
+    q, pk, pv, bt, lens = _paged(gen, 2, 4, 2, 64, 16, 2, torch.float32,
+                                 torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        kernel.paged_attention(q, pk, pv, bt.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                               pk, pv, bt, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.paged_attention(q.cpu(), pk, pv, bt, lens)
+    with pytest.raises(ValueError, match="dtypes"):     # f32 q, bf16 pool
+        kernel.paged_attention(q, pk.bfloat16(), pv.bfloat16(), bt, lens)
+    with pytest.raises(ValueError, match="16-byte"):    # D = 62 f32
+        kernel.paged_attention(q[..., :62].contiguous(),
+                               pk[..., :62].contiguous(),
+                               pv[..., :62].contiguous(), bt, lens)
+    with pytest.raises(ValueError, match="16-byte"):    # pool off by 4 bytes
+        flat = torch.empty(pk.numel() + 1, device="cuda")
+        shifted = flat[1:].view(pk.shape)
+        kernel.paged_attention(q, shifted, pv, bt, lens)
+
+
+@pytest.mark.parametrize("b,t,h,kv,d,window", [
+    (2, 256, 4, 2, 64, 0),
+    (1, 256, 8, 8, 128, 0),
+    (2, 512, 4, 1, 64, 128),    # windowed
+    (1, 128, 9, 3, 64, 0),      # h=9 / kv=3
+    (1, 512, 2, 2, 128, 256),
+    (1, 37, 32, 8, 128, 0),     # ragged T, the main path's heads
+    (3, 11, 4, 2, 96, 0),
+    (1, 1, 4, 2, 64, 0),
+    (1, 50, 16, 1, 64, 7),      # MQA, QPK 16, ragged and windowed
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_prefill_kernel_matches_plain(b, t, h, kv, d, window, dtype,
+                                            gen):
+    from repro_torch.kernels.flash_prefill import kernel, ref
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype)
+    before = kernel.flash_prefill.launches
+    out = kernel.flash_prefill(q, k, v, window)
+    assert kernel.flash_prefill.launches == before + 1
+    _close(out, ref.flash_prefill_ref(q, k, v, window),
+           (2e-5, 2e-5) if dtype == torch.float32 else TOL[dtype])
+
+
+def test_flash_prefill_kernel_is_causal(gen):
+    """Perturbing future tokens must not change earlier outputs."""
+    from repro_torch.kernels.flash_prefill import kernel
+    b, t, h, d = 1, 256, 4, 64
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+               for _ in range(3))
+    out1 = kernel.flash_prefill(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t // 2:] += 5.0
+    v2[:, t // 2:] += 5.0
+    out2 = kernel.flash_prefill(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(out1[:, :t // 2], out2[:, :t // 2])
+
+
+def test_engine_on_card_matches_cpu(gen):
+    """Reduced qwen3 served on the card (both kernels) gives the CPU port's
+    greedy tokens (plain versions), f32 pool."""
+    from repro_torch import configs
+    from repro_torch.config import GPU_H100
+    from repro_torch.engine.engine import LLMEngine
+    from repro_torch.engine.executor import RealExecutor
+    from repro_torch.engine.request import Request, SamplingParams
+    from repro_torch.models import api
+    cfg = configs.get("qwen3-1.7b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    prompts = [list(range(3, 3 + n)) for n in (11, 64, 33)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        tree = _to(params, device)
+        ex = RealExecutor(cfg, tree, num_blocks=64, block_size=16,
+                          hw=GPU_H100, max_model_len=256, device=device)
+        eng = LLMEngine(cfg, ex, num_blocks=64, block_size=16,
+                        max_num_seqs=4, max_prefill_tokens=32,
+                        max_model_len=256)
+        reqs = [Request(prompt_tokens=p, sampling=SamplingParams(
+            temperature=0.0, max_new_tokens=6)) for p in prompts]
+        for r in reqs:
+            eng.add_request(r, 0.0)
+        now = 0.0
+        while eng.has_work():
+            now += max(eng.step(now).elapsed, 1e-4)
+        outs[device] = [r.output_tokens for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
