@@ -7,21 +7,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit; build both CUDA kernels from
      src/repro_torch/csrc (timed);
   2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, with its time, the plain version's time, its bound and,
-     for flash prefill, scaled_dot_product_attention's time as a yardstick;
+     path's shapes (and at edge cases: every split of paged decode live, a
+     dead tile row and the smallest head width in flash prefill), with its
+     time, the plain version's time, its bound and, for flash prefill,
+     scaled_dot_product_attention's time as a yardstick. A timed kernel row
+     also gives `device_ms`, the time of one call replayed from a CUDA graph
+     of 20, which leaves out the wrapper's host time that `ms` includes.
+     Timed calls cycle through copies of their inputs, enough that no call
+     finds its bytes in the L2 cache: every time is from HBM;
   3. the main path: Mistral-Small-24B at full width and depth (40 layers,
      bf16 weights drawn from a seeded torch.Generator) serves 4 requests
      through LLMEngine; both kernels' launch counts must equal 40 x the model
      passes that ran them;
   4. the same architecture cut to 2 layers, f32: the engine's greedy tokens
      (kernel path) must equal those of the dense plain oracle;
-  5. one JSON line of per-kernel numbers, then the result line.
+  5. one JSON line of per-kernel numbers, all measured in this run but the
+     computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -33,6 +42,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+L2_BYTES = 50 * 2**20                     # H100 SXM L2 cache
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # f32 outside the tensor cores
 # (atol, rtol) of |out - ref| <= atol + rtol * |ref|. Both kernels compute in
@@ -64,6 +74,37 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, n=20):
+    """Time of one call replayed from a CUDA graph of n calls: the device
+    time, without the host time of the Python wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def cold(fn, args, live_bytes):
+    """A call of fn that cycles through copies of args, enough that the
+    other copies' live bytes, read between two uses of one copy, exceed
+    twice the L2: each call reads its inputs from HBM."""
+    n = 1 + -(-2 * L2_BYTES // live_bytes)
+    sets = itertools.cycle(
+        [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args) for _ in range(n - 1)])
+    return lambda: fn(*next(sets))
+
+
 def compare(out, ref):
     """Max abs error, and whether |out - ref| <= atol + rtol * |ref|."""
     atol, rtol = TOL[out.dtype]
@@ -86,7 +127,9 @@ def size(t):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def paged_case(gen, q_dtype, kv_dtype, timed):
+def paged_case(gen, q_dtype, kv_dtype, timed, ctx=None):
+    """S 4, H 32, KV 8, D 128, BS 16, MB 256. ctx None: random contexts,
+    ctx 1 and the full table among them."""
     from repro_torch.kernels.paged_attention import kernel, ref
     s, h, kv, d, bs, mb = 4, 32, 8, 128, 16, 256
     nb = s * mb + 1
@@ -100,6 +143,8 @@ def paged_case(gen, q_dtype, kv_dtype, timed):
                          dtype=torch.int32)
     lens[0] = 1                                   # ctx 1 and the full table
     lens[1] = mb * bs
+    if ctx is not None:
+        lens = torch.tensor(ctx, device=dev, dtype=torch.int32)
     args = (q, pk, pv, bt, lens)
     out = kernel.paged_attention(*args)
     torch.cuda.synchronize()
@@ -113,8 +158,9 @@ def paged_case(gen, q_dtype, kv_dtype, timed):
         pages = sum(-(-min(c, mb * bs) // bs) for c in lens.tolist())
         n_bytes = live + size(q) + size(out) + 4 * pages + size(lens)
         n_ops = 4 * h * d * ctx
-        row["ms"] = cuda_ms(lambda: kernel.paged_attention(*args))
-        row["plain_ms"] = cuda_ms(lambda: ref.paged_attention_ref(*args))
+        row["ms"] = cuda_ms(cold(kernel.paged_attention, args, live))
+        row["device_ms"] = graph_ms(cold(kernel.paged_attention, args, live))
+        row["plain_ms"] = cuda_ms(cold(ref.paged_attention_ref, args, live))
         row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, kv_dtype)
         row["library_ms"] = None     # no single PyTorch call does paged decode
     return row
@@ -124,9 +170,9 @@ def visible_pairs(t, window):
     return sum(min(i + 1, window) if window else i + 1 for i in range(t))
 
 
-def flash_case(gen, dtype, t, window, timed):
+def flash_case(gen, dtype, t, window, timed, h=32, kv=8, d=128):
     from repro_torch.kernels.flash_prefill import kernel, ref
-    b, h, kv, d = 1, 32, 8, 128
+    b = 1
     dev = "cuda"
     q = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(dtype)
@@ -139,9 +185,12 @@ def flash_case(gen, dtype, t, window, timed):
     if timed:
         n_bytes = size(q) + size(k) + size(v) + size(out)
         n_ops = 4 * d * h * b * visible_pairs(t, window)
-        row["ms"] = cuda_ms(lambda: kernel.flash_prefill(q, k, v, window))
-        row["plain_ms"] = cuda_ms(
-            lambda: ref.flash_prefill_ref(q, k, v, window))
+        row["ms"] = cuda_ms(cold(kernel.flash_prefill, (q, k, v, window),
+                                 n_bytes))
+        row["device_ms"] = graph_ms(cold(kernel.flash_prefill,
+                                         (q, k, v, window), n_bytes))
+        row["plain_ms"] = cuda_ms(cold(ref.flash_prefill_ref,
+                                       (q, k, v, window), n_bytes))
         row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, dtype)
         row["library_ms"] = None
         if window == 0:   # yardstick only; the port never calls it
@@ -149,8 +198,9 @@ def flash_case(gen, dtype, t, window, timed):
             sk = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
             sv = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_ms"] = cuda_ms(
-                lambda: sdpa(sq, sk, sv, is_causal=True))
+            row["library_ms"] = cuda_ms(cold(
+                functools.partial(sdpa, is_causal=True), (sq, sk, sv),
+                n_bytes))
     return row
 
 
@@ -162,10 +212,18 @@ def phase_kernels():
         "flash_prefill": flash_case(gen, bf16, 1500, 0, timed=True),
     }
     others = [paged_case(gen, f32, f32, True), paged_case(gen, bf16, bf16, True),
+              # the main path's contexts at its last decode step
+              paged_case(gen, bf16, f32, True, ctx=[52, 315, 1015, 1515]),
+              # every split of one sequence live, the others one token
+              paged_case(gen, bf16, f32, False, ctx=[256 * 16, 1, 1, 1]),
               flash_case(gen, bf16, 37, 0, False),
+              flash_case(gen, bf16, 300, 0, True),
+              flash_case(gen, bf16, 1000, 0, True),
               flash_case(gen, bf16, 2048, 0, True),
               flash_case(gen, bf16, 2048, 256, True),
-              flash_case(gen, f32, 1500, 0, True)]
+              flash_case(gen, f32, 1500, 0, True),
+              # QPK 3: 63 live rows of 64; the smallest head width
+              flash_case(gen, bf16, 1000, 0, False, h=9, kv=3, d=64)]
     for row in list(rows.values()) + others:
         print("kernel-check " + json.dumps(row))
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
@@ -306,7 +364,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)}")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "setmaxnreg")):
                 print(f"ptxas {name}: {line.strip()}")
 
     rows = phase_kernels()
@@ -331,7 +389,8 @@ def main():
                 "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
                 "bound_ms": rows[name]["bound_ms"],
                 "bound_by": rows[name]["bound_by"],
-                "library_ms": rows[name]["library_ms"]}
+                "library_ms": rows[name]["library_ms"],
+                "device_ms": rows[name]["device_ms"]}
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

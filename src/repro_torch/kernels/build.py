@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into
 ``build/kernels/lib<name>-<hash>.so`` under the repository root (a directory
 that ``.gitignore`` lists), the first time it is needed. The hash covers the
-source and the flags, so an edited source is rebuilt. The libraries have a
+source, every header in ``csrc/`` and the flags, so an edited source or
+header is rebuilt. The one driver-API function used (the TMA descriptor
+encoder) is reached through the CUDA runtime's driver entry point, so
+nothing links against libcuda. The libraries have a
 plain C interface and are loaded with ctypes; nothing includes PyTorch's
 headers, so a build takes seconds. ``build_all`` starts one ``nvcc`` per
 source, all at once.
@@ -37,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -77,6 +83,15 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def current_stream(device: int) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device, for a
+    kernel launch. ``torch.cuda.current_stream(d).cuda_stream`` gives the
+    same handle but builds a Stream object first, several microseconds per
+    call on a path that launches once per layer."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(lib: ctypes.CDLL, prefix: str, err: int):

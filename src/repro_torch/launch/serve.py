@@ -121,10 +121,16 @@ def main(argv=None):
         print(json.dumps(device_time_by_kernel(prof, wall)))
 
 
+# substrings of the names of the port's own kernels (csrc/*.cu), listed
+# whatever their rank
+PORT_KERNELS = ("flash_prefill", "paged_split", "paged_combine")
+
+
 def device_time_by_kernel(prof, wall_s: float, top: int = 12):
-    """Device time per kernel name from a torch.profiler trace, the top
-    ``top`` of them, and their sum as a share of the serving window (the
-    profiler's own overhead included)."""
+    """Device time per kernel name from a torch.profiler trace: the top
+    ``top`` of them and every kernel of the port's own, and the sum of all
+    as a share of the serving window (the profiler's own overhead
+    included)."""
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -139,7 +145,8 @@ def device_time_by_kernel(prof, wall_s: float, top: int = 12):
     return {"device_busy_s": busy_s, "wall_s": wall_s,
             "device_busy_share": busy_s / wall_s,
             "kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
-                        for us, c, k in rows[:top]]}
+                        for i, (us, c, k) in enumerate(rows)
+                        if i < top or any(n in k for n in PORT_KERNELS)]}
 
 
 if __name__ == "__main__":

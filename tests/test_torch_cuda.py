@@ -102,6 +102,24 @@ def test_paged_attention_zero_context_gives_zeros(gen):
     assert bool((out == 0).all())
 
 
+@pytest.mark.parametrize("where", ["on_boundary", "one_past", "full_table"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16", "bf16q_f32kv"])
+def test_paged_attention_split_edges(where, dtypes, gen):
+    """Contexts that end exactly on a split's last token, one token into the
+    next split, and at MB * BS (every split live), beside ctx 1."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    s, h, kv, d, bs, mb = 3, 8, 2, 128, 16, 64
+    p = kernel.plan(s, h, kv, d, bs, mb)
+    span = p.span_pages * bs
+    assert p.splits >= 3
+    ctx = {"on_boundary": 2 * span, "one_past": 2 * span + 1,
+           "full_table": mb * bs}[where]
+    args = list(_paged(gen, s, h, kv, d, bs, mb, *dtypes))
+    args[4] = torch.tensor([ctx, 1, span], device="cuda", dtype=torch.int32)
+    out = kernel.paged_attention(*args)
+    _close(out, ref.paged_attention_ref(*args), TOL[dtypes[0]])
+
+
 def test_paged_attention_kernel_rejects_bad_inputs(gen):
     from repro_torch.kernels.paged_attention import kernel
     q, pk, pv, bt, lens = _paged(gen, 2, 4, 2, 64, 16, 2, torch.float32,
@@ -123,6 +141,10 @@ def test_paged_attention_kernel_rejects_bad_inputs(gen):
         flat = torch.empty(pk.numel() + 1, device="cuda")
         shifted = flat[1:].view(pk.shape)
         kernel.paged_attention(q, shifted, pv, bt, lens)
+    with pytest.raises(ValueError, match="head_dim"):   # D = 48
+        kernel.paged_attention(q[..., :48].contiguous(),
+                               pk[..., :48].contiguous(),
+                               pv[..., :48].contiguous(), bt, lens)
 
 
 @pytest.mark.parametrize("b,t,h,kv,d,window", [
@@ -149,6 +171,39 @@ def test_flash_prefill_kernel_matches_plain(b, t, h, kv, d, window, dtype,
     assert kernel.flash_prefill.launches == before + 1
     _close(out, ref.flash_prefill_ref(q, k, v, window),
            (2e-5, 2e-5) if dtype == torch.float32 else TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("qpk", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 1500, 2049])
+def test_flash_prefill_bf16_tensor_cores(t, qpk, d, window, gen):
+    """The wgmma kernel over ragged T (tile edges at 64 keys and 64 // QPK
+    positions), every QPK of the configs and tests (3 leaves a dead row),
+    every head width, causal and windowed, at the bf16 output's rounding."""
+    from repro_torch.kernels.flash_prefill import kernel, ref
+    kv = 2
+    q = torch.randn(1, t, kv * qpk, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, t, kv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, t, kv, d, generator=gen, device="cuda").bfloat16()
+    out = kernel.flash_prefill(q, k, v, window)
+    _close(out, ref.flash_prefill_ref(q, k, v, window), TOL[torch.bfloat16])
+
+
+def test_flash_prefill_kernel_rejects_bad_inputs(gen):
+    """bf16 takes D 64, 96 and 128 only, and never falls to the CUDA-core
+    kernel; q must be contiguous."""
+    from repro_torch.kernels.flash_prefill import kernel
+    q = torch.randn(1, 16, 4, 80, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, 16, 2, 80, generator=gen, device="cuda").bfloat16()
+    before = kernel.flash_prefill.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        kernel.flash_prefill(q, k, k)
+    q = torch.randn(1, 4, 16, 64, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, 16, 2, 64, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_prefill(q.transpose(1, 2), k, k)
+    assert kernel.flash_prefill.launches == before
 
 
 def test_flash_prefill_kernel_is_causal(gen):

@@ -126,3 +126,109 @@ def test_cpu_dispatch_never_builds_the_kernel(op, rng, monkeypatch):
         x = torch.from_numpy(rng.normal(size=(1, 5, 2, 32)).astype(np.float32))
         fp_ops.flash_prefill(x, x, x)
         assert kernel.flash_prefill.launches == before
+
+
+@pytest.mark.parametrize("op", ["paged", "flash"])
+def test_cpu_dispatch_of_bf16_never_builds_the_kernel(op, rng, monkeypatch):
+    """bf16 CPU tensors (the main path's q) take the plain version too, with
+    head widths the bf16 kernels would refuse, and keep their dtype."""
+    from repro_torch.kernels import build
+
+    def refuse(*_a, **_k):
+        raise AssertionError("kernel build reached on the CPU")
+
+    monkeypatch.setattr(build, "load", refuse)
+    if op == "paged":
+        q, pk, pv, bt, lens = map(torch.from_numpy,
+                                  _paged_inputs(rng, 2, 4, 2, 48, 4, 2))
+        out = pa_ops.paged_attention(q.bfloat16(), pk, pv, bt, lens)
+    else:
+        x = torch.from_numpy(rng.normal(size=(1, 5, 2, 80)).astype(np.float32))
+        out = fp_ops.flash_prefill(*(x.bfloat16(),) * 3)
+    assert out.dtype == torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# host-side planning of the CUDA wrappers (pure Python, no card needed)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,h,kv,d,bs,mb", [
+    (4, 32, 8, 128, 16, 256),   # the main path: mistral-small-24b
+    (3, 9, 3, 64, 16, 5),       # QPK 3, fewer pages than one span
+    (1, 16, 1, 128, 32, 16),    # MQA, QPK 16
+    (5, 32, 32, 96, 16, 300),   # phi3-like head_dim, MB not a multiple
+    (2, 4, 2, 64, 512, 3),      # a page longer than the span
+])
+def test_paged_plan_splits_and_scratch(s, h, kv, d, bs, mb):
+    """Whole pages per split, splits cover the table exactly once, and the
+    scratch holds one (max, sum) pair and one accumulator per split and
+    head: all from the shapes alone."""
+    from repro_torch.kernels.paged_attention.kernel import SPAN_TOKENS, plan
+    p = plan(s, h, kv, d, bs, mb)
+    assert p.span_pages == max(1, SPAN_TOKENS // bs)
+    assert p.splits * p.span_pages >= mb > (p.splits - 1) * p.span_pages
+    # (max, sum) of shape (S, H, splits, 2), then accumulators (S, H, splits, D)
+    assert p.scratch_numel == s * h * p.splits * 2 + s * h * p.splits * d
+
+
+def test_paged_plan_main_path_fills_the_card():
+    """At the main path's shape the split grid has several blocks per SM of
+    an H100 (132), where one block per (sequence, KV head) had 32."""
+    from repro_torch.kernels.paged_attention.kernel import plan
+    s, kv = 4, 8
+    p = plan(s, 32, kv, 128, 16, 256)
+    assert p.splits * kv * s >= 2 * 132     # the grid (splits, KV, S)
+
+
+@pytest.mark.parametrize("h,kv,d", [(8, 2, 80), (32, 1, 128), (8, 2, 48),
+                                    (6, 4, 64)])
+def test_paged_plan_rejects_shapes_the_kernel_does_not_take(h, kv, d):
+    from repro_torch.kernels.paged_attention.kernel import plan
+    with pytest.raises(ValueError):
+        plan(2, h, kv, d, 16, 4)
+
+
+@pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 300, 1500, 2049])
+@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (9, 3, 64), (16, 1, 96),
+                                    (4, 4, 64), (64, 1, 128)])
+def test_flash_plan_tiles_cover_every_position(t, h, kv, d):
+    """64-row tiles of 64 // QPK positions times QPK heads, rows past that
+    dead; just enough tiles for T. Both kernels take the same tiling."""
+    from repro_torch.kernels.flash_prefill.kernel import plan
+    b = 2
+    p = plan(b, t, h, kv, d, torch.bfloat16)
+    qpk = h // kv
+    assert p.positions == 64 // qpk and 64 - qpk < p.positions * qpk <= 64
+    assert (p.q_tiles - 1) * p.positions < t <= p.q_tiles * p.positions
+    assert plan(b, t, h, kv, d, torch.float32) == p
+
+
+@pytest.mark.parametrize("d", [32, 80, 256])
+def test_flash_plan_bf16_takes_only_the_configs_head_widths(d):
+    """bf16 takes D 64, 96 and 128, the head widths of every config; any
+    other raises rather than taking the CUDA-core kernel. f32 takes them."""
+    from repro_torch.kernels.flash_prefill.kernel import plan
+    with pytest.raises(ValueError, match="head_dim"):
+        plan(1, 10, 4, 2, d, torch.bfloat16)
+    assert plan(1, 10, 4, 2, d, torch.float32) == plan(1, 10, 4, 2, 64,
+                                                          torch.bfloat16)
+
+
+def test_flash_plan_head_widths_match_the_configs():
+    from repro_torch import configs
+    from repro_torch.kernels.flash_prefill.kernel import WGMMA_HEAD_DIMS
+    from repro_torch.kernels.paged_attention.kernel import (HEAD_DIMS,
+                                                            MAX_Q_PER_KV)
+    for cfg in configs.CONFIGS.values():
+        assert cfg.head_dim in WGMMA_HEAD_DIMS and cfg.head_dim in HEAD_DIMS
+        assert cfg.q_per_kv <= MAX_Q_PER_KV
+
+
+@pytest.mark.parametrize("bad", ["dtype", "heads"])
+def test_flash_plan_rejects_bad_inputs(bad):
+    from repro_torch.kernels.flash_prefill.kernel import plan
+    with pytest.raises(ValueError):
+        if bad == "dtype":
+            plan(1, 10, 4, 2, 64, torch.float16)
+        else:
+            plan(1, 10, 6, 4, 64, torch.bfloat16)
