@@ -7,8 +7,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit; build both CUDA kernels from
      src/repro_torch/csrc (timed);
   2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (and at edge cases: every split of paged decode live, a
-     dead tile row and the smallest head width in flash prefill), with its
+     path's shapes and the MoE path's (QPK 8), and at edge cases (every
+     split of paged decode live, a dead tile row and the smallest head width
+     in flash prefill), with its
      time, the plain version's time, its bound and, for flash prefill,
      scaled_dot_product_attention's time as a yardstick. A timed kernel row
      also gives `device_ms`, the time of one call replayed from a CUDA graph
@@ -18,10 +19,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. the main path: Mistral-Small-24B at full width and depth (40 layers,
      bf16 weights drawn from a seeded torch.Generator) serves 4 requests
      through LLMEngine; both kernels' launch counts must equal 40 x the model
-     passes that ran them;
+     passes that ran them. Then one decode step at the run's last contexts,
+     timed alone: its wall time, its device time and its byte bound;
   4. the same architecture cut to 2 layers, f32: the engine's greedy tokens
      (kernel path) must equal those of the dense plain oracle;
-  5. one JSON line of per-kernel numbers, all measured in this run but the
+  5. the MoE path, once Mistral's weights are freed: Qwen3-30B-A3B at full
+     width and depth (48 layers, 128 experts, top-8, bf16) serves the same
+     4 requests as phase 3, with the same checks (launches 48 x passes)
+     and the same decode-step timing;
+  6. Qwen3-30B-A3B cut to 2 layers, f32: greedy tokens equal to the plain
+     oracle's, the 1000- and 1500-token prefills with the capacity below n;
+  7. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 """
@@ -49,7 +57,7 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
 # f32, as the plain versions do; a bf16 output differs from the plain one by
 # its rounding, at most one bf16 step (2^-7 of |ref|), plus f32 arithmetic.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
-LAYERS = 40
+LAYERS = {"mistral-small-24b": 40, "qwen3-moe-30b-a3b": 48}
 
 
 def check(cond, msg):
@@ -127,11 +135,11 @@ def size(t):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def paged_case(gen, q_dtype, kv_dtype, timed, ctx=None):
-    """S 4, H 32, KV 8, D 128, BS 16, MB 256. ctx None: random contexts,
-    ctx 1 and the full table among them."""
+def paged_case(gen, q_dtype, kv_dtype, timed, ctx=None, kv=8):
+    """S 4, H 32, KV 8 (Mistral) or 4 (Qwen3-30B-A3B), D 128, BS 16, MB 256.
+    ctx None: random contexts, ctx 1 and the full table among them."""
     from repro_torch.kernels.paged_attention import kernel, ref
-    s, h, kv, d, bs, mb = 4, 32, 8, 128, 16, 256
+    s, h, d, bs, mb = 4, 32, 128, 16, 256
     nb = s * mb + 1
     dev = "cuda"
     q = torch.randn(s, h, d, generator=gen, device=dev).to(q_dtype)
@@ -223,7 +231,13 @@ def phase_kernels():
               flash_case(gen, bf16, 2048, 256, True),
               flash_case(gen, f32, 1500, 0, True),
               # QPK 3: 63 live rows of 64; the smallest head width
-              flash_case(gen, bf16, 1000, 0, False, h=9, kv=3, d=64)]
+              flash_case(gen, bf16, 1000, 0, False, h=9, kv=3, d=64),
+              # the MoE path's attention: Qwen3-30B-A3B, QPK 8
+              paged_case(gen, bf16, f32, True, kv=4),
+              paged_case(gen, bf16, f32, True, ctx=[52, 315, 1015, 1515],
+                         kv=4),
+              flash_case(gen, bf16, 1500, 0, True, kv=4),
+              flash_case(gen, bf16, 37, 0, False, kv=4)]
     for row in list(rows.values()) + others:
         print("kernel-check " + json.dumps(row))
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
@@ -231,7 +245,7 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------------
-# phases 3 and 4: the main path
+# phases 3 to 6: the serving paths
 # --------------------------------------------------------------------------
 
 def reset_counts():
@@ -248,15 +262,18 @@ def read_counts():
             "flash_prefill": fp.flash_prefill.launches}
 
 
-def phase_main_path(cfg):
+def phase_path(cfg):
+    """``cfg`` at full width and depth serves the 4 requests through the
+    engine; returns the kernels' launches in that run."""
     from repro_torch.launch import serve
     from repro_torch.models import api
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                              "cuda")
     torch.cuda.synchronize()
-    print(f"main-path: {cfg.name} layers={cfg.num_layers} d_model="
-          f"{cfg.d_model} {cfg.param_dtype} weights "
+    name = cfg.name
+    print(f"path {name}: layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"{cfg.param_dtype} weights "
           f"{sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB, init "
           f"{time.perf_counter() - t0:.1f} s")
     engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
@@ -271,30 +288,82 @@ def phase_main_path(cfg):
     counts = read_counts()
     ex = engine.executor
     for r, t in zip(reqs, timing):
-        print("main-path request " + json.dumps(
+        print(f"path {name} request " + json.dumps(
             {"prompt_len": r.prompt_len, "status": r.status.value, **t,
              "tokens": r.output_tokens}))
     n = sum(len(r.output_tokens) for r in reqs)
-    print("main-path " + json.dumps(
+    print(f"path {name} " + json.dumps(
         {"wall_s": wall, "output_tokens": n, "tokens_per_s": n / wall,
          "decode_steps": ex.decode_steps,
          "prefill_computes": ex.prefill_computes, "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     check(all(r.status.value == "finished"
               and len(r.output_tokens) == serve.NEW_TOKENS for r in reqs),
-          "not every request finished with its tokens")
+          f"{name}: not every request finished with its tokens")
     check(ex.prefill_computes == len(serve.PROMPT_LENS),
-          f"{ex.prefill_computes} prefill computes")
+          f"{name}: {ex.prefill_computes} prefill computes")
     check(counts["paged_attention"] == cfg.num_layers * ex.decode_steps > 0,
-          f"paged-attention launches {counts} vs {ex.decode_steps} steps")
+          f"{name}: paged-attention launches {counts} vs {ex.decode_steps} "
+          f"steps")
     check(counts["flash_prefill"] == cfg.num_layers * ex.prefill_computes,
-          f"flash-prefill launches {counts} vs {ex.prefill_computes}")
+          f"{name}: flash-prefill launches {counts} vs "
+          f"{ex.prefill_computes}")
     # the output itself: finite logits of the expected shape
     toks = torch.tensor(prompts[0], device="cuda")[None]
     logits, _ = api.prefill_fn(params, cfg, {"tokens": toks})
     check(tuple(logits.shape) == (1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+          and bool(torch.isfinite(logits).all()), f"{name}: bad logits")
+    step = decode_step_timing(cfg, params, ex.pool)
+    print(f"path {name} decode-step " + json.dumps(step))
     return counts
+
+
+def decode_step_timing(cfg, params, pool, ctx=(52, 315, 1015, 1515)):
+    """One paged decode step of 4 sequences at the run's last contexts:
+    `ms` (CUDA events around a call: the host's launches included),
+    `device_ms` (the kernels' device time from torch.profiler) and the byte
+    bound: every weight read once (of the token embedding only the rows
+    looked up), the live KV read and the new KV written."""
+    from repro_torch.engine import paged_model
+    from repro_torch.launch import serve
+    s, bs = len(ctx), pool["k"].shape[2]
+    pages = [-(-c // bs) for c in ctx]
+    mb = -(-4096 // bs)
+    perm = torch.randperm(pool["k"].shape[1], device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(5))
+    bt = torch.zeros((s, mb), dtype=torch.int32, device="cuda")
+    used = 0
+    for i, p in enumerate(pages):
+        bt[i, :p] = perm[used:used + p].int()
+        used += p
+    toks = torch.arange(1, s + 1, device="cuda")
+    pos = torch.tensor([c - 1 for c in ctx], device="cuda")
+
+    def step():
+        return paged_model.decode_step(params, cfg, toks, pos, pool, bt)
+
+    ms = cuda_ms(step, iters=5, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    device_ms = serve.device_time_by_kernel(prof, 1.0)["device_busy_s"] \
+        * 1e3 / n
+    emb = params["embedding"]
+    weights = sum(size(t) for t in _leaves(params)) - size(emb["tok"]) \
+        + s * emb["tok"][0].numel() * emb["tok"].element_size()
+    if "unembed" not in emb:          # tied: the head reads the whole table
+        weights += size(emb["tok"])
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim \
+        * pool["k"].element_size()
+    n_bytes = weights + kv_token * (sum(ctx) + s)
+    return {"ctx": list(ctx), "ms": ms, "device_ms": device_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "weight_gb_read": weights / 1e9,
+            "kv_gb_read": kv_token * sum(ctx) / 1e9}
 
 
 def _leaves(tree):
@@ -336,11 +405,22 @@ def phase_oracle(cfg):
     oracle = [oracle_generate(cfg, params, p, serve.NEW_TOKENS)
               for p in prompts]
     same = [r.output_tokens == o for r, o in zip(reqs, oracle)]
-    print("oracle " + json.dumps({"layers": cfg.num_layers,
-                                  "dtype": cfg.param_dtype, "equal": same,
-                                  "launches": counts}))
-    check(all(same), "kernel path and plain oracle disagree on tokens")
+    print(f"oracle {cfg.name} " + json.dumps(
+        {"layers": cfg.num_layers, "dtype": cfg.param_dtype, "equal": same,
+         "launches": counts}))
+    check(all(same), f"{cfg.name}: kernel path and plain oracle disagree on "
+                     f"tokens")
     check(all(counts.values()), f"kernel path did not launch: {counts}")
+
+
+def free_the_card():
+    """Drop every tensor a finished phase left behind; the next path's
+    weights need the card to themselves."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"memory allocated between paths: {held / 1e9:.3f} GB")
+    check(held < 1e9, f"{held / 1e9:.2f} GB still allocated")
 
 
 def main():
@@ -369,13 +449,15 @@ def main():
 
     rows = phase_kernels()
 
-    cfg = configs.get("mistral-small-24b")
-    check(cfg.num_layers == LAYERS, "mistral-small-24b is not 40 layers")
-    counts = phase_main_path(cfg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_oracle(dataclasses.replace(cfg, num_layers=2,
-                                     param_dtype="float32"))
+    launches = {}
+    for name, layers in LAYERS.items():
+        cfg = configs.get(name)
+        check(cfg.num_layers == layers, f"{name} is not {layers} layers")
+        free_the_card()
+        launches[name] = phase_path(cfg)
+        free_the_card()
+        phase_oracle(dataclasses.replace(cfg, num_layers=2,
+                                         param_dtype="float32"))
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"
@@ -383,8 +465,11 @@ def main():
                "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill/"
                                  "kernel.py:28")}
+    # `launches` is the main path's (Mistral's); every path's is beside it
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[name],
+                "replaces": rep,
+                "launches": launches["mistral-small-24b"][name],
+                "launches_by_path": {p: c[name] for p, c in launches.items()},
                 "max_abs_err": rows[name]["max_abs_err"],
                 "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
                 "bound_ms": rows[name]["bound_ms"],

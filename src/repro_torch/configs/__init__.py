@@ -1,12 +1,17 @@
-"""Architecture registry of the PyTorch port: the dense configurations it
-serves so far. ``get(arch_id)`` resolves the ids used by ``--arch``."""
+"""Architecture registry of the PyTorch port: the configurations of the
+families its paged path serves (dense, vlm, moe). ``get(arch_id)`` resolves
+the ids used by ``--arch``."""
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs import (
+    kimi_k2_1t_a32b,
+    minicpm_2b,
     mistral_small_24b,
     phi3_mini_3_8b,
+    pixtral_12b,
     qwen3_1_7b,
+    qwen3_moe_30b_a3b,
     smollm_135m,
 )
 
@@ -17,6 +22,10 @@ CONFIGS: dict[str, ModelConfig] = {
         smollm_135m.CONFIG,
         phi3_mini_3_8b.CONFIG,
         mistral_small_24b.CONFIG,
+        qwen3_moe_30b_a3b.CONFIG,
+        kimi_k2_1t_a32b.CONFIG,
+        pixtral_12b.CONFIG,
+        minicpm_2b.CONFIG,
     ]
 }
 

@@ -1,0 +1,11 @@
+"""qwen3-moe-30b-a3b [moe] — 128 experts top-8. [hf:Qwen/Qwen3-30B-A3B]"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-30b-a3b", family="moe",
+    num_layers=48, d_model=2048, num_heads=32, num_kv_heads=4,
+    d_ff=768, vocab_size=151_936, head_dim=128,
+    qk_norm=True, rope_theta=1_000_000.0,
+    num_experts=128, num_experts_per_tok=8, moe_d_ff=768,
+    param_dtype="bfloat16",
+)

@@ -29,7 +29,8 @@
 // in shared memory (fetched beside the context length), and 32-token tiles
 // of K and V stream through a two-stage ring by 16-byte cp.async, so tile
 // n+1 is in flight while tile n is computed. The block's lanes form groups
-// of G (8 for QPK <= 4, else 32); a group takes every GROUPS-th token of a
+// of G (8 for QPK <= 4, 16 for QPK <= 8, else 32); a group takes every
+// GROUPS-th token of a
 // tile, splits D across its lanes (D / G elements each), reduces each dot
 // product with log2(G) shuffles, and keeps its own online softmax for the
 // QPK heads in registers, rescaling its accumulator only when its running
@@ -72,10 +73,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Lanes per token group: 8 while the QPK query and accumulator rows fit in
-// registers at D / 8 elements a lane, else the whole warp.
+// Lanes per token group: as few as keep the MAXQ query and accumulator rows
+// at 2 * MAXQ * D / G <= 128 registers a lane at D 128. Fewer lanes means
+// fewer shuffle rounds per dot and more tokens scored at once.
 template <int MAXQ>
-__host__ __device__ constexpr int group_lanes() { return MAXQ <= 4 ? 8 : 32; }
+__host__ __device__ constexpr int group_lanes() {
+  return MAXQ <= 4 ? 8 : (MAXQ <= 8 ? 16 : 32);
+}
 
 // Shared memory: the ring, k[kStages][kTile][D + kPad] and
 // v[kStages][kTile][D + kPad] in the pool's type, reused after the loop for
@@ -368,8 +372,9 @@ cudaError_t dispatch_qpk(const void* q, const void* pk, const void* pv,
 #define PAGED_SPLIT(MAXQ)                                                 \
   launch_split<TQ, TKV, D, MAXQ>(q, pk, pv, bt, lens, ml, acc, S, H, KV, \
                                  BS, MB, span_pages, splits, scale, st)
-  // two widths only: rows past QPK are dead (`h < qpk` guards them)
+  // three widths only: rows past QPK are dead (`h < qpk` guards them)
   if (qpk <= 4) return PAGED_SPLIT(4);
+  if (qpk <= 8) return PAGED_SPLIT(8);
   if (qpk <= 16) return PAGED_SPLIT(16);
 #undef PAGED_SPLIT
   return cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 """Model executors behind the engine: the counterpart of
 ``repro/engine/executor.py``.
 
-RealExecutor   — PyTorch compute against the paged pool (dense family), on
-                 the card by default; the CPU only when the caller asks.
+RealExecutor   — PyTorch compute against the paged pool (dense and moe
+                 families), on the card by default; the CPU only when the
+                 caller asks.
 SimExecutor    — no compute; the roofline cost model supplies step times and
                  the engine synthesises token ids.
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import HardwareConfig, ModelConfig
+from repro_torch.device import require as require_device
 from repro_torch.engine import paged_model
 from repro_torch.engine.costmodel import RooflineCost
 from repro_torch.models import api
@@ -52,7 +54,12 @@ class SimExecutor:
 
 
 class RealExecutor:
-    """Paged-pool PyTorch executor (dense family).
+    """Paged-pool PyTorch executor (dense and moe families).
+
+    vlm is refused, as it is in effect in the reference: the reference's
+    executor passes no ``patch_embeds``, so its vlm prefill fails on the
+    missing key; serving images through the engine would be a feature the
+    JAX package lacks.
 
     ``params`` is the model's tree of tensors on ``device``. The pool is f32,
     as in the JAX executor. ``decode_steps`` and ``prefill_computes`` count
@@ -64,13 +71,15 @@ class RealExecutor:
     def __init__(self, cfg: ModelConfig, params, num_blocks: int,
                  block_size: int, hw: HardwareConfig, tp: int = 1,
                  max_model_len: int = 4096, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("RealExecutor: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                      f"yet (dense only)")
+        self.device = require_device(device)
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                "RealExecutor: vlm is not served through the engine: requests "
+                "carry no patch embeddings (neither does the reference's "
+                "executor, whose vlm prefill fails on the missing key)")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(f"RealExecutor: family {cfg.family!r} "
+                                      f"is not ported yet (dense, moe)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         leaf = params["embedding"]["tok"]

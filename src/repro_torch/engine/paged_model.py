@@ -1,5 +1,6 @@
-"""Model glue for decoding against the paged KV pool (dense family): the
-counterpart of ``repro/engine/paged_model.py``.
+"""Model glue for decoding against the paged KV pool: the counterpart of
+``repro/engine/paged_model.py``, for the dense, vlm and moe families (the
+ones with a KV cache).
 
 Decode runs one token per active sequence against the pool through the
 paged-attention op: the hand-written CUDA kernel on the card, its plain
@@ -12,13 +13,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import require as require_device
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import common as cm
+from repro_torch.models import moe, transformer
 from repro_torch.models.transformer import layer
 
 
 def init_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-              dtype=torch.float32, device="cpu"):
+              dtype=torch.float32, device="cuda"):
+    device = require_device(device)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -45,10 +49,15 @@ def write_prefill(pool, cache, block_table, block_size: int):
 def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):
     """tokens/pos: (S,) int64; pool as init_pool; block_tables: (S, MB)
     int32. Writes each new token's K/V at (pos // BS, pos % BS) before the
-    attention reads it, in place. Returns (logits (S, V), pool)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"paged decode of {cfg.family!r} is not "
-                                  f"ported yet (dense only)")
+    attention reads it, in place. Returns (logits (S, V), pool).
+
+    Each layer's feed-forward is the SwiGLU MLP (dense, vlm) or, for moe,
+    ``moe.moe_block`` in serving mode (capacity_factor None: dropless at
+    decode batch sizes), its aux loss dropped."""
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(f"paged decode serves dense, vlm and moe, "
+                                  f"not {cfg.family!r}")
+    ffn = moe.ffn if cfg.family == "moe" else transformer.ffn
     x = cm.embed(params["embedding"], tokens[:, None])   # (S, 1, d)
     bs = pool["k"].shape[2]
     blk = torch.gather(block_tables, 1, (pos // bs)[:, None])[:, 0].long()
@@ -64,6 +73,6 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):
         a = pa_ops.paged_attention(q[:, 0], pk, pv, block_tables, ctx)
         x = x + cm._out_proj(a, lp["attn"]["wo"])[:, None]
         h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + cm.mlp(lp["mlp"], h)
+        x = x + ffn(lp, cfg, h)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return cm.unembed(params["embedding"], x)[:, 0], pool

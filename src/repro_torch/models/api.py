@@ -1,11 +1,12 @@
 """Model API of the PyTorch port: the serving entry points of
-``repro/models/api.py`` for the dense family.
+``repro/models/api.py`` for the families of the paged path (dense, vlm, moe).
 
   init_params(cfg, generator, device)         -> params
   prefill_fn(params, cfg, batch)              -> (logits, cache)
   decode_fn(params, cfg, tokens, cache, pos)  -> (logits, cache)
 
-Parameters carry no logical sharding axes: the port runs on one card.
+Parameters carry no logical sharding axes: the port runs on one card. Every
+function builds on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -13,26 +14,35 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.device import require as require_device
+from repro_torch.models import moe, transformer
 
-_MODULES = {"dense": transformer}
+_MODULES = {"dense": transformer, "vlm": transformer, "moe": moe}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _MODULES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet "
+            f"(have {sorted(_MODULES)})")
     return _MODULES[cfg.family]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device="cpu"):
+                device="cuda"):
+    """Random weights on ``device``, from ``generator`` (by default one on
+    the same device, seeded 0)."""
+    device = require_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     return module_for(cfg).init(cfg, generator, device)
 
 
 def prefill_fn(params, cfg: ModelConfig, batch, attention=None):
+    """batch: {"tokens": (B, T)}, and "patch_embeds" for a vlm."""
+    if cfg.family == "vlm":
+        return transformer.prefill(params, cfg, batch["tokens"], attention,
+                                   patch_embeds=batch["patch_embeds"])
     return module_for(cfg).prefill(params, cfg, batch["tokens"], attention)
 
 
@@ -41,7 +51,7 @@ def decode_fn(params, cfg: ModelConfig, tokens, cache, pos):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cuda"):
     return module_for(cfg).init_cache(cfg, batch, max_len, dtype, device)
 
 

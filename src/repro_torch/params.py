@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import require as require_device
+
 
 def _to_tensor(a, device):
     a = np.asarray(a)
@@ -26,8 +28,10 @@ def _to_array(t: torch.Tensor):
     return t.numpy()
 
 
-def from_numpy(tree, device="cpu"):
-    """Nested dict of arrays -> nested dict of tensors on ``device``."""
+def from_numpy(tree, device="cuda"):
+    """Nested dict of arrays -> nested dict of tensors on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = require_device(device)
     return {k: from_numpy(v, device) if isinstance(v, dict)
             else _to_tensor(v, device) for k, v in tree.items()}
 

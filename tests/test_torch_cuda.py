@@ -5,6 +5,8 @@ a machine with an H100 (JAX need not be installed there):
     PYTHONPATH=src python -m pytest --noconftest -m cuda -q \
         tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -52,6 +54,9 @@ DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (1, 16, 1, 128, 32, 16),    # MQA, QPK 16
     (5, 8, 8, 96, 16, 3),       # head_dim 96
     (2, 32, 8, 128, 16, 256),   # the main path's shape
+    (2, 32, 4, 128, 16, 256),   # Qwen3-30B-A3B's heads, QPK 8
+    (3, 12, 2, 64, 16, 5),      # QPK 6: dead rows of the 8-row kernel
+    (2, 8, 1, 32, 16, 4),       # QPK 8 at the smallest head width
 ])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16", "bf16q_f32kv"])
 def test_paged_attention_kernel_matches_plain(s, h, kv, d, bs, mb, dtypes,
@@ -175,7 +180,7 @@ def test_flash_prefill_kernel_matches_plain(b, t, h, kv, d, window, dtype,
 
 @pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
 @pytest.mark.parametrize("d", [64, 96, 128])
-@pytest.mark.parametrize("qpk", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("qpk", [1, 2, 3, 4, 8, 16])
 @pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 1500, 2049])
 def test_flash_prefill_bf16_tensor_cores(t, qpk, d, window, gen):
     """The wgmma kernel over ragged T (tile edges at 64 keys and 64 // QPK
@@ -250,6 +255,103 @@ def test_engine_on_card_matches_cpu(gen):
             now += max(eng.step(now).elapsed, 1e-4)
         outs[device] = [r.output_tokens for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_moe_engine_on_card_matches_cpu(gen):
+    """Reduced qwen3-moe served on the card (both kernels, MoE dispatch on
+    the device) gives the CPU port's greedy tokens, f32 pool; the 90-token
+    prompt prefills with the capacity below n."""
+    from repro_torch import configs
+    from repro_torch.config import GPU_H100
+    from repro_torch.engine.engine import LLMEngine
+    from repro_torch.engine.executor import RealExecutor
+    from repro_torch.engine.request import Request, SamplingParams
+    from repro_torch.models import api
+    cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    prompts = [list(range(3, 3 + n)) for n in (11, 90, 33)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        ex = RealExecutor(cfg, _to(params, device), num_blocks=64,
+                          block_size=16, hw=GPU_H100, max_model_len=256,
+                          device=device)
+        eng = LLMEngine(cfg, ex, num_blocks=64, block_size=16,
+                        max_num_seqs=4, max_prefill_tokens=32,
+                        max_model_len=256)
+        reqs = [Request(prompt_tokens=p, sampling=SamplingParams(
+            temperature=0.0, max_new_tokens=6)) for p in prompts]
+        for r in reqs:
+            eng.add_request(r, 0.0)
+        now = 0.0
+        while eng.has_work():
+            now += max(eng.step(now).elapsed, 1e-4)
+        outs[device] = [r.output_tokens for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def _moe_layer(cfg, gen):
+    """Layer 0's MoE leaves, drawn on the generator's device."""
+    from repro_torch.models import moe
+    p = moe.init(cfg, gen, gen.device)["layers"]["moe"]
+    return {k: v[0] for k, v in p.items()}
+
+
+@pytest.mark.parametrize("case", ["dropless", "overflow", "all_ties"])
+def test_moe_block_on_card_matches_cpu(case, gen):
+    """moe_block on the card against its CPU result in f32: 16 tokens
+    (cap = n), 300 tokens with a router skewed so that expert 0 drops
+    entries, and a zero router that ties every expert (lowest ids win)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+    p = _moe_layer(cfg, torch.Generator().manual_seed(3))
+    n = 16 if case == "dropless" else 300
+    x = torch.randn(1, n, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(4)) * 0.3
+    if case == "overflow":
+        x[..., 0] = 1.0
+        p["router"][0, 0] = 20.0
+    if case == "all_ties":
+        p["router"].zero_()
+    y_cpu, aux_cpu = moe.moe_block(p, cfg, x, capacity_factor=None)
+    y, aux = moe.moe_block(_to(p, "cuda"), cfg, x.cuda(),
+                           capacity_factor=None)
+    _close(y.cpu(), y_cpu, TOL[torch.float32])
+    _close(aux.cpu(), aux_cpu, TOL[torch.float32])
+
+
+def test_moe_block_never_syncs_with_the_host(gen):
+    """Serving moe_block at decode and prefill sizes runs with the CUDA sync
+    debugger set to raise: nothing in the layer waits for the device."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+    p = _to(_moe_layer(cfg, torch.Generator().manual_seed(3)), "cuda")
+    for n in (4, 300):
+        x = torch.randn(1, n, cfg.d_model, generator=gen, device="cuda")
+        moe.moe_block(p, cfg, x, capacity_factor=None)      # warm up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe.moe_block(p, cfg, x, capacity_factor=None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def test_moe_block_bf16_is_deterministic(gen):
+    """bf16 at Qwen3-30B-A3B's widths over a 1500-token prefill (capacity
+    188 of 1500): two calls give bitwise the same output."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"), num_layers=1)
+    p = _moe_layer(cfg, gen)
+    x = torch.randn(1, 1500, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    a, _ = moe.moe_block(p, cfg, x, capacity_factor=None)
+    b, _ = moe.moe_block(p, cfg, x, capacity_factor=None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert bool(torch.isfinite(a.float()).all())
 
 
 def _to(tree, device):

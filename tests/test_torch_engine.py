@@ -26,7 +26,7 @@ from repro_torch.models import api as tapi  # noqa: E402
 def dense_setup():
     jcfg = jconfigs.get("qwen3-1.7b").reduced()
     params, _ = japi.init_params(jcfg, jax.random.key(7))
-    tree = tparams.from_numpy(jax.tree.map(np.asarray, params))
+    tree = tparams.from_numpy(jax.tree.map(np.asarray, params), "cpu")
     return jcfg, params, tconfigs.get("qwen3-1.7b").reduced(), tree
 
 
@@ -133,7 +133,7 @@ def test_write_prefill_and_paged_decode_match_jax(dense_setup, rng):
     jcfg, jp, tcfg, tp = dense_setup
     bs, nb, mb = 8, 12, 4
     jpool = jpaged.init_pool(jcfg, nb, bs)
-    tpool = tpaged.init_pool(tcfg, nb, bs)
+    tpool = tpaged.init_pool(tcfg, nb, bs, device="cpu")
     tables = [[3, 0, 7], [5, 9]]           # block 0 is an ordinary block
     lens = [19, 9]
     for table, n in zip(tables, lens):

@@ -34,7 +34,8 @@ def _jax_params(name, seed=7):
     cfg = jconfigs.get(name).reduced()
     params, _ = japi.init_params(cfg, jax.random.key(seed))
     tree = jax.tree.map(np.asarray, params)
-    return cfg, tconfigs.get(name).reduced(), params, tparams.from_numpy(tree)
+    return (cfg, tconfigs.get(name).reduced(), params,
+            tparams.from_numpy(tree, "cpu"))
 
 
 def test_rms_norm_matches_jax(rng):
@@ -121,6 +122,36 @@ def test_prefill_and_decode_match_jax(name, rng):
         nxt = np.argmax(_np(jl), -1).astype(np.int32)
 
 
+def test_vlm_prefill_with_patches_and_decode_match_jax(rng):
+    """pixtral's backbone: patch embeddings, projected by vision_proj, take
+    the place of the first num_patches token embeddings; then dense-cache
+    decode."""
+    jcfg, tcfg, jp, tp = _jax_params("pixtral-12b")
+    b, t, n_new = 2, jcfg.num_patches + 5, 2
+    toks = rng.integers(1, jcfg.vocab_size, size=(b, t)).astype(np.int32)
+    patches = rng.normal(size=(b, jcfg.num_patches, jcfg.frontend_dim))
+    patches = patches.astype(np.float32)
+    jl, jc = japi.prefill_fn(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                        "patch_embeds": jnp.asarray(patches)})
+    tl, tc = tapi.prefill_fn(tp, tcfg, {"tokens": _t(toks).long(),
+                                        "patch_embeds": _t(patches)})
+    np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+    np.testing.assert_allclose(tc["v"].numpy(), _np(jc["v"]), **TOL)
+    zeros = {"tokens": _t(toks).long(), "patch_embeds": _t(0 * patches)}
+    no_patches, _ = tapi.prefill_fn(tp, tcfg, zeros)
+    assert not np.allclose(no_patches.numpy(), tl.numpy())
+    jc = japi.pad_cache(jcfg, jc, t + n_new)
+    tc = tapi.pad_cache(tcfg, tc, t + n_new)
+    nxt = np.argmax(_np(jl), -1).astype(np.int32)
+    for i in range(n_new):
+        pos = np.full((b,), t + i, np.int32)
+        jl, jc = japi.decode_fn(jp, jcfg, jnp.asarray(nxt), jc,
+                                jnp.asarray(pos))
+        tl, tc = tapi.decode_fn(tp, tcfg, _t(nxt).long(), tc, _t(pos).long())
+        np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+        nxt = np.argmax(_np(jl), -1).astype(np.int32)
+
+
 def test_plain_attention_prefill_matches_default(rng):
     """Passing the plain chunked attention gives the same prefill as the
     default flash-prefill op (its plain version, on the CPU)."""
@@ -135,8 +166,11 @@ def test_plain_attention_prefill_matches_default(rng):
 
 def test_torch_init_matches_jax_tree():
     """The port's own initializer builds the JAX tree: same keys, shapes and
-    dtypes, and the normal leaves have the JAX fan-in scales."""
-    for name in ("qwen3-1.7b", "mistral-small-24b"):
+    dtypes, and the normal leaves have the JAX fan-in scales, for every
+    family of the paged path (moe with and without a shared expert, vlm's
+    vision projection)."""
+    for name in ("qwen3-1.7b", "mistral-small-24b", "qwen3-moe-30b-a3b",
+                 "kimi-k2-1t-a32b", "pixtral-12b", "minicpm-2b"):
         jcfg, tcfg, jp, _ = _jax_params(name)
         gen = torch.Generator("cpu").manual_seed(0)
         tp = tapi.init_params(tcfg, gen, "cpu")
@@ -157,7 +191,7 @@ def test_init_cache_and_pad_cache_match_jax():
     jcfg = jconfigs.get("mistral-small-24b").reduced()
     tcfg = tconfigs.get("mistral-small-24b").reduced()
     jc = japi.init_cache(jcfg, 2, 9, dtype=jnp.float32)
-    tc = tapi.init_cache(tcfg, 2, 9, dtype=torch.float32)
+    tc = tapi.init_cache(tcfg, 2, 9, dtype=torch.float32, device="cpu")
     assert {k: v.shape for k, v in jc.items()} == \
         {k: tuple(v.shape) for k, v in tc.items()}
     for n in (5, 12):

@@ -45,11 +45,45 @@ def test_real_executor_does_not_fall_back_to_cpu(monkeypatch):
     from repro_torch.models import api
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tconfigs.get("smollm-135m").reduced()
-    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RealExecutor(cfg, params, num_blocks=8, block_size=4, hw=GPU_H100)
     RealExecutor(cfg, params, num_blocks=8, block_size=4, hw=GPU_H100,
                  device="cpu")
+
+
+def test_model_api_builds_on_the_card_by_default(monkeypatch):
+    """Called without a device, the functions that build tensors aim at the
+    card: with none available they raise rather than return CPU tensors."""
+    from repro_torch.engine import paged_model
+    from repro_torch.models import api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get("qwen3-moe-30b-a3b").reduced()
+    calls = {
+        "init_params": lambda: api.init_params(cfg),
+        "init_params with a CPU generator": lambda: api.init_params(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_cache": lambda: api.init_cache(cfg, 1, 8),
+        "init_pool": lambda: paged_model.init_pool(cfg, 4, 4),
+        "from_numpy": lambda: tparams.from_numpy({"w": np.zeros(3)}),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+            pytest.fail(f"{name} returned without a card")
+    assert api.init_params(cfg, device="cpu")["final_norm"].device.type == \
+        "cpu"
+
+
+@pytest.mark.parametrize("name", sorted(tconfigs.CONFIGS))
+def test_port_config_equals_jax_config(name):
+    """Each configuration of the port is the JAX package's, field for field,
+    at full size and reduced."""
+    import dataclasses
+    t, j = tconfigs.get(name), jconfigs.get(name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert t.num_params() == j.num_params()
 
 
 def test_serve_entry_point_does_not_fall_back_to_cpu(monkeypatch):
@@ -78,12 +112,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(op):
 
 @pytest.mark.parametrize("name", sorted(tconfigs.CONFIGS))
 def test_params_round_trip(name):
-    """Every reduced dense config: the JAX tree survives from_numpy and
+    """Every reduced config of the port: the JAX tree survives from_numpy and
     to_numpy with the same keys, shapes, dtypes and values."""
     jcfg = jconfigs.get(name).reduced()
     params, _ = japi.init_params(jcfg, jax.random.key(1))
     tree = jax.tree.map(np.asarray, params)
-    tp = tparams.from_numpy(tree)
+    tp = tparams.from_numpy(tree, "cpu")
     back = tparams.to_numpy(tp)
     flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
     flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
@@ -97,7 +131,7 @@ def test_params_round_trip(name):
 def test_params_bfloat16_round_trip(rng):
     import ml_dtypes
     a = rng.normal(size=(3, 5)).astype(ml_dtypes.bfloat16)
-    t = tparams.from_numpy({"w": a})["w"]
+    t = tparams.from_numpy({"w": a}, "cpu")["w"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
     b = tparams.to_numpy({"w": t})["w"]
