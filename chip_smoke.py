@@ -6,30 +6,39 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit; build both CUDA kernels from
      src/repro_torch/csrc (timed);
-  2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes and the MoE path's (QPK 8), and at edge cases (every
-     split of paged decode live, a dead tile row and the smallest head width
-     in flash prefill), with its
-     time, the plain version's time, its bound and, for flash prefill,
-     scaled_dot_product_attention's time as a yardstick. A timed kernel row
-     also gives `device_ms`, the time of one call replayed from a CUDA graph
-     of 20, which leaves out the wrapper's host time that `ms` includes.
-     Timed calls cycle through copies of their inputs, enough that no call
-     finds its bytes in the L2 cache: every time is from HBM;
-  3. the main path: Mistral-Small-24B at full width and depth (40 layers,
-     bf16 weights drawn from a seeded torch.Generator) serves 4 requests
-     through LLMEngine; both kernels' launch counts must equal 40 x the model
-     passes that ran them. Then one decode step at the run's last contexts,
-     timed alone: its wall time, its device time and its byte bound;
-  4. the same architecture cut to 2 layers, f32: the engine's greedy tokens
-     (kernel path) must equal those of the dense plain oracle;
-  5. the MoE path, once Mistral's weights are freed: Qwen3-30B-A3B at full
-     width and depth (48 layers, 128 experts, top-8, bf16) serves the same
-     4 requests as phase 3, with the same checks (launches 48 x passes)
-     and the same decode-step timing;
-  6. Qwen3-30B-A3B cut to 2 layers, f32: greedy tokens equal to the plain
-     oracle's, the 1000- and 1500-token prefills with the capacity below n;
-  7. one JSON line of per-kernel numbers, all measured in this run but the
+  2. each kernel against its plain PyTorch version on the card at the
+     serving paths' shapes (Mistral's, Qwen3-30B-A3B's QPK 8,
+     RecurrentGemma-9B's D 256 / QPK 16 with and without its 2048 window,
+     Whisper-small's decoder), and at edge cases (every split of paged decode
+     live, a dead tile row and the smallest head width in flash prefill),
+     with its time, the plain version's time, its bound and, for flash
+     prefill without a window, scaled_dot_product_attention's time as a
+     yardstick. A timed kernel row also gives `device_ms`, the time of one
+     call replayed from a CUDA graph of 20, which leaves out the wrapper's
+     host time that `ms` includes. Timed calls cycle through copies of their
+     inputs, enough that no call finds its bytes in the L2 cache: every time
+     is from HBM;
+  3. the serving paths, one after the other, each once the previous one's
+     tensors are freed: Mistral-Small-24B (dense, 40 layers), Qwen3-30B-A3B
+     (MoE, 48 layers, 128 experts, top-8), RecurrentGemma-9B (hybrid, 38
+     layers: 12 (rec, rec, attn) groups and 2 rec layers) and Mamba2-780M
+     (ssm, 48 layers), at full width and depth with bf16 weights drawn from
+     a seeded torch.Generator, each serving 4 requests through LLMEngine:
+     the paged path for the first two, the slot-state executor for the
+     others. Each path's kernel launches must equal its attention layers x
+     the model passes that ran them (none of either kernel for Mamba2, no
+     paged decode for the state paths). Then one decode step at the run's
+     last contexts, timed alone: its wall time, its device time and its
+     byte bound;
+  4. after each path, its architecture cut to 2 layers (RecurrentGemma to 5:
+     a group and a tail), f32: the engine's greedy tokens (kernel path)
+     must equal those of the plain oracle (plain attention in prefill, the
+     model's decode_step);
+  5. Whisper-small (audio, 12 + 12 layers) at full width through the model
+     API: prefill_fn on seeded 1500 x 80 frames (flash prefill launched 12
+     times) and 16 decode steps, timed as above; then at 2 layers f32 its
+     greedy tokens with the kernel equal those with plain attention;
+  6. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 """
@@ -57,7 +66,12 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
 # f32, as the plain versions do; a bf16 output differs from the plain one by
 # its rounding, at most one bf16 step (2^-7 of |ref|), plus f32 arithmetic.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
-LAYERS = {"mistral-small-24b": 40, "qwen3-moe-30b-a3b": 48}
+# the serving paths, in order, with their depth
+LAYERS = {"mistral-small-24b": 40, "qwen3-moe-30b-a3b": 48,
+          "recurrentgemma-9b": 38, "mamba2-780m": 48}
+ORACLE_LAYERS = {"recurrentgemma-9b": 5}   # others: 2
+AUDIO = "whisper-small"
+AUDIO_PROMPT = 37                          # decoder prompt tokens
 
 
 def check(cond, msg):
@@ -237,7 +251,17 @@ def phase_kernels():
               paged_case(gen, bf16, f32, True, ctx=[52, 315, 1015, 1515],
                          kv=4),
               flash_case(gen, bf16, 1500, 0, True, kv=4),
-              flash_case(gen, bf16, 37, 0, False, kv=4)]
+              flash_case(gen, bf16, 37, 0, False, kv=4),
+              # the hybrid path's attention: RecurrentGemma-9B, D 256,
+              # QPK 16, its 2048 window; past the window; ragged T
+              flash_case(gen, bf16, 1500, 0, True, h=16, kv=1, d=256),
+              flash_case(gen, bf16, 3072, 2048, True, h=16, kv=1, d=256),
+              flash_case(gen, bf16, 37, 2048, False, h=16, kv=1, d=256),
+              flash_case(gen, bf16, 1499, 2048, False, h=16, kv=1, d=256),
+              flash_case(gen, f32, 300, 2048, False, h=16, kv=1, d=256),
+              # Whisper-small's decoder self-attention
+              flash_case(gen, bf16, AUDIO_PROMPT, 0, False, h=12, kv=12,
+                         d=64)]
     for row in list(rows.values()) + others:
         print("kernel-check " + json.dumps(row))
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
@@ -245,7 +269,7 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------------
-# phases 3 to 6: the serving paths
+# phases 3 to 5: the serving paths
 # --------------------------------------------------------------------------
 
 def reset_counts():
@@ -262,6 +286,20 @@ def read_counts():
             "flash_prefill": fp.flash_prefill.launches}
 
 
+def attention_layers(cfg):
+    """Layers that run attention: every one, a third of the hybrid's (one
+    per (rec, rec, attn) group), none of mamba2's."""
+    return {"ssm": 0, "hybrid": cfg.num_layers // 3}.get(cfg.family,
+                                                        cfg.num_layers)
+
+
+def expected_counts(cfg, ex):
+    """The launches a run of the engine's executor must have made."""
+    return {"paged_attention": cfg.num_layers * ex.decode_steps
+            if ex.paged else 0,
+            "flash_prefill": attention_layers(cfg) * ex.prefill_computes}
+
+
 def phase_path(cfg):
     """``cfg`` at full width and depth serves the 4 requests through the
     engine; returns the kernels' launches in that run."""
@@ -272,14 +310,15 @@ def phase_path(cfg):
                              "cuda")
     torch.cuda.synchronize()
     name = cfg.name
-    print(f"path {name}: layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"{cfg.param_dtype} weights "
+    print(f"path {name}: family={cfg.family} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} {cfg.param_dtype} weights "
           f"{sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB, init "
           f"{time.perf_counter() - t0:.1f} s")
     engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    prompts = serve.make_prompts(cfg.vocab_size, serve.PROMPT_LENS, seed=0)
+    lens = serve.prompt_lens(cfg)
+    prompts = serve.make_prompts(cfg.vocab_size, lens, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -300,32 +339,82 @@ def phase_path(cfg):
     check(all(r.status.value == "finished"
               and len(r.output_tokens) == serve.NEW_TOKENS for r in reqs),
           f"{name}: not every request finished with its tokens")
-    check(ex.prefill_computes == len(serve.PROMPT_LENS),
-          f"{name}: {ex.prefill_computes} prefill computes")
-    check(counts["paged_attention"] == cfg.num_layers * ex.decode_steps > 0,
-          f"{name}: paged-attention launches {counts} vs {ex.decode_steps} "
-          f"steps")
-    check(counts["flash_prefill"] == cfg.num_layers * ex.prefill_computes,
-          f"{name}: flash-prefill launches {counts} vs "
-          f"{ex.prefill_computes}")
+    check(ex.prefill_computes == len(lens) and ex.decode_steps > 0,
+          f"{name}: {ex.prefill_computes} prefill computes, "
+          f"{ex.decode_steps} decode steps")
+    check(counts == expected_counts(cfg, ex),
+          f"{name}: launches {counts}, want {expected_counts(cfg, ex)}")
     # the output itself: finite logits of the expected shape
     toks = torch.tensor(prompts[0], device="cuda")[None]
     logits, _ = api.prefill_fn(params, cfg, {"tokens": toks})
     check(tuple(logits.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{name}: bad logits")
-    step = decode_step_timing(cfg, params, ex.pool)
+    ctx = tuple(n + serve.NEW_TOKENS - 1 for n in lens)
+    step = (decode_step_timing(cfg, params, ex.pool, ctx) if ex.paged
+            else state_step_timing(cfg, params, ctx))
     print(f"path {name} decode-step " + json.dumps(step))
     return counts
 
 
-def decode_step_timing(cfg, params, pool, ctx=(52, 315, 1015, 1515)):
-    """One paged decode step of 4 sequences at the run's last contexts:
-    `ms` (CUDA events around a call: the host's launches included),
-    `device_ms` (the kernels' device time from torch.profiler) and the byte
-    bound: every weight read once (of the token embedding only the rows
-    looked up), the live KV read and the new KV written."""
-    from repro_torch.engine import paged_model
+def time_step(step):
+    """`ms` (CUDA events around a call: the host's launches included),
+    `device_ms` (the kernels' device time from torch.profiler), and the
+    step's five costliest kernels and five costliest PyTorch ops by the
+    device time of the kernels each launched itself (ms and calls a
+    step)."""
     from repro_torch.launch import serve
+    ms = cuda_ms(step, iters=5, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    by_kernel = serve.device_time_by_kernel(prof, 1.0, top=5)
+    kernels = [{"name": k["name"], "calls": k["calls"] / n,
+                "device_ms": k["device_ms"] / n}
+               for k in by_kernel["kernels"][:5]]
+    ops = sorted(((getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0), e.count,
+                   e.key) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 reverse=True)[:5]
+    ops = [{"name": k, "calls": c / n, "device_ms": us / 1e3 / n}
+           for us, c, k in ops if us > 0]
+    return ms, by_kernel["device_busy_s"] * 1e3 / n, kernels, ops
+
+
+def weight_bytes(params, s):
+    """The weights a decode step of s sequences reads: every leaf once, but
+    of the token embedding and the learned decoder positions only the rows
+    looked up (the whole table where a tied head reads it), and nothing of
+    an encoder."""
+    encoder = ("frontend", "pos_enc", "enc_layers", "enc_norm")
+    n = sum(size(t) for k, v in params.items() if k not in encoder
+            for t in (_leaves(v) if isinstance(v, dict) else (v,)))
+    for table in (params["embedding"]["tok"], params.get("pos_dec")):
+        if table is not None:
+            n += s * size(table[0]) - size(table)
+    if "unembed" not in params["embedding"]:   # tied: the head reads it all
+        n += size(params["embedding"]["tok"])
+    return n
+
+
+def step_row(ctx, timing, weights, other, other_name):
+    ms, device_ms, kernels, ops = timing
+    return {"ctx": list(ctx), "ms": ms, "device_ms": device_ms,
+            "bound_ms": (weights + other) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "weight_gb_read": weights / 1e9,
+            other_name: other / 1e9, "top_kernels": kernels,
+            "top_ops": ops}
+
+
+def decode_step_timing(cfg, params, pool, ctx):
+    """One paged decode step of 4 sequences at the run's last contexts,
+    timed; its byte bound: the weights read once, the live KV read and the
+    new KV written."""
+    from repro_torch.engine import paged_model
     s, bs = len(ctx), pool["k"].shape[2]
     pages = [-(-c // bs) for c in ctx]
     mb = -(-4096 // bs)
@@ -338,32 +427,37 @@ def decode_step_timing(cfg, params, pool, ctx=(52, 315, 1015, 1515)):
         used += p
     toks = torch.arange(1, s + 1, device="cuda")
     pos = torch.tensor([c - 1 for c in ctx], device="cuda")
-
-    def step():
-        return paged_model.decode_step(params, cfg, toks, pos, pool, bt)
-
-    ms = cuda_ms(step, iters=5, warmup=1)
-    from torch.profiler import ProfilerActivity, profile
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    device_ms = serve.device_time_by_kernel(prof, 1.0)["device_busy_s"] \
-        * 1e3 / n
-    emb = params["embedding"]
-    weights = sum(size(t) for t in _leaves(params)) - size(emb["tok"]) \
-        + s * emb["tok"][0].numel() * emb["tok"].element_size()
-    if "unembed" not in emb:          # tied: the head reads the whole table
-        weights += size(emb["tok"])
+    timing = time_step(
+        lambda: paged_model.decode_step(params, cfg, toks, pos, pool, bt))
     kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim \
         * pool["k"].element_size()
-    n_bytes = weights + kv_token * (sum(ctx) + s)
-    return {"ctx": list(ctx), "ms": ms, "device_ms": device_ms,
-            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "weight_gb_read": weights / 1e9,
-            "kv_gb_read": kv_token * sum(ctx) / 1e9}
+    return step_row(ctx, timing, weight_bytes(params, s),
+                    kv_token * (sum(ctx) + s), "kv_gb_read")
+
+
+def state_step_timing(cfg, params, ctx):
+    """One decode step of the slot-state families for 4 sequences, on caches
+    in the model's own dtypes (as the executor hands them over), timed; its
+    byte bound: the weights read once, each recurrent state read and
+    written, the live window of the hybrid's KV read and its new row
+    written."""
+    from repro_torch.models import api
+    s = len(ctx)
+    cache = api.init_cache(cfg, s, 4096,
+                           dtype=params["embedding"]["tok"].dtype,
+                           device="cuda")
+    toks = torch.arange(1, s + 1, device="cuda")
+    pos = torch.tensor([c - 1 for c in ctx], device="cuda")
+    timing = time_step(lambda: api.decode_fn(params, cfg, toks, cache, pos))
+    state = 0
+    for key, leaf in cache.items():
+        if key in ("g_k", "g_v"):   # (groups, B, window, KV, D)
+            row = leaf.shape[0] * size(leaf[0, 0, 0])
+            state += row * sum(min(c, cfg.attn_window) for c in ctx)
+        else:
+            state += 2 * size(leaf)
+    return step_row(ctx, timing, weight_bytes(params, s), state,
+                    "state_gb_moved")
 
 
 def _leaves(tree):
@@ -372,9 +466,9 @@ def _leaves(tree):
 
 
 def oracle_generate(cfg, params, prompt, n_new):
-    """Greedy tokens from the dense path with plain attention: prefill with
-    chunked_causal_mha, then dense-cache decode (the counterpart of the JAX
-    tests' oracle_generate)."""
+    """Greedy tokens with plain attention: prefill with chunked_causal_mha,
+    then the model's own decode_step on a dense (or state) cache (the
+    counterpart of the JAX tests' oracle_generate)."""
     from repro_torch.models import api
     from repro_torch.models import common as cm
     toks = torch.tensor(prompt, device="cuda")[None]
@@ -398,7 +492,8 @@ def phase_oracle(cfg):
     engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    prompts = serve.make_prompts(cfg.vocab_size, serve.PROMPT_LENS, seed=1)
+    prompts = serve.make_prompts(cfg.vocab_size, serve.prompt_lens(cfg),
+                                 seed=1)
     reset_counts()
     reqs, _ = serve.serve(engine, prompts, serve.NEW_TOKENS)
     counts = read_counts()
@@ -410,7 +505,97 @@ def phase_oracle(cfg):
          "launches": counts}))
     check(all(same), f"{cfg.name}: kernel path and plain oracle disagree on "
                      f"tokens")
-    check(all(counts.values()), f"kernel path did not launch: {counts}")
+    want = expected_counts(cfg, engine.executor)
+    check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
+
+
+def audio_generate(cfg, params, prompt, frames, n_steps, attention=None):
+    """Greedy decoding through the model API: prefill_fn on the frames and
+    the prompt, then ``n_steps`` decode steps. Returns the tokens and the
+    cache."""
+    from repro_torch.models import api
+    toks = torch.tensor(prompt, device="cuda")[None]
+    logits, cache = api.prefill_fn(params, cfg, {"tokens": toks,
+                                                 "frames": frames},
+                                   attention=attention)
+    cache = api.pad_cache(cfg, cache, len(prompt) + n_steps + 8)
+    out = [int(logits[0].argmax())]
+    for i in range(n_steps):
+        pos = torch.tensor([len(prompt) + i], device="cuda")
+        logits, cache = api.decode_fn(
+            params, cfg, torch.tensor([out[-1]], device="cuda"), cache, pos)
+        out.append(int(logits[0].argmax()))
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{cfg.name}: bad logits")
+    return out, cache
+
+
+def phase_audio(cfg):
+    """Whisper-small at full width through the model API: one clip's seeded
+    frames, a prompt, 16 decode steps; flash prefill runs the decoder's
+    causal self-attention once a layer. Returns the kernels' launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    frames = torch.randn(1, cfg.encoder_seq_len, cfg.frontend_dim,
+                         generator=torch.Generator("cuda").manual_seed(2),
+                         device="cuda")
+    prompt = serve.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=0)[0]
+    print(f"path {cfg.name}: family={cfg.family} layers={cfg.num_layers}+"
+          f"{cfg.encoder_layers} d_model={cfg.d_model} {cfg.param_dtype} "
+          f"weights {sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, cache = audio_generate(cfg, params, prompt, frames,
+                                 serve.NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"path {cfg.name} " + json.dumps(
+        {"wall_s": wall, "prompt_len": len(prompt), "decode_steps":
+         serve.NEW_TOKENS, "tokens": toks, "tokens_per_s": len(toks) / wall,
+         "launches": counts,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    want = {"paged_attention": 0, "flash_prefill": attention_layers(cfg)}
+    check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
+    ctx = len(prompt) + serve.NEW_TOKENS + 1
+    toks_t = torch.tensor([1], device="cuda")
+    pos = torch.tensor([ctx - 1], device="cuda")
+    timing = time_step(
+        lambda: api.decode_fn(params, cfg, toks_t, cache, pos))
+    kv = cache["k"]                      # (L, B, S, KV, D)
+    row = kv.shape[0] * size(kv[0, 0, 0])
+    other = 2 * row * ctx + size(cache["ck"]) + size(cache["cv"])
+    print(f"path {cfg.name} decode-step " + json.dumps(step_row(
+        (ctx,), timing, weight_bytes(params, 1), other, "kv_gb_read")))
+    return counts
+
+
+def phase_audio_oracle(cfg):
+    """At 2 layers f32: greedy tokens with the flash-prefill kernel equal
+    those with plain attention."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.models import common as cm
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                             "cuda")
+    frames = torch.randn(1, cfg.encoder_seq_len, cfg.frontend_dim,
+                         generator=torch.Generator("cuda").manual_seed(3),
+                         device="cuda")
+    prompt = serve.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=1)[0]
+    reset_counts()
+    kernel, _ = audio_generate(cfg, params, prompt, frames, serve.NEW_TOKENS)
+    counts = read_counts()
+    plain, _ = audio_generate(cfg, params, prompt, frames, serve.NEW_TOKENS,
+                              attention=cm.plain_prefill_attention)
+    print(f"oracle {cfg.name} " + json.dumps(
+        {"layers": cfg.num_layers, "dtype": cfg.param_dtype,
+         "equal": kernel == plain, "launches": counts}))
+    check(kernel == plain, f"{cfg.name}: kernel path and plain attention "
+                           f"disagree on tokens")
+    check(counts["flash_prefill"] == cfg.num_layers,
+          f"{cfg.name}: launches {counts}")
 
 
 def free_the_card():
@@ -444,7 +629,8 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)}")
     for name, text in reports.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "setmaxnreg")):
+            if any(w in line for w in ("registers", "spill", "setmaxnreg",
+                                       "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}")
 
     rows = phase_kernels()
@@ -456,8 +642,16 @@ def main():
         free_the_card()
         launches[name] = phase_path(cfg)
         free_the_card()
-        phase_oracle(dataclasses.replace(cfg, num_layers=2,
-                                         param_dtype="float32"))
+        phase_oracle(dataclasses.replace(
+            cfg, num_layers=ORACLE_LAYERS.get(name, 2),
+            param_dtype="float32"))
+    cfg = configs.get(AUDIO)
+    free_the_card()
+    launches[AUDIO] = phase_audio(cfg)
+    free_the_card()
+    phase_audio_oracle(dataclasses.replace(cfg, num_layers=2,
+                                           encoder_layers=2,
+                                           param_dtype="float32"))
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"

@@ -27,7 +27,7 @@
 // tile and the grid and passes them in.
 //
 // bf16: tensor cores fed by TMA (`flash_prefill_wgmma`), for D in {64, 96,
-// 128}. A block is two warpgroups. The producer warpgroup gives up its
+// 128, 256}. A block is two warpgroups. The producer warpgroup gives up its
 // registers (setmaxnreg) and one of its threads issues TMA loads: the query
 // tile once, then each 64-key K and V tile into a two-stage ring in shared
 // memory, 128-byte swizzled, with an mbarrier per stage for "full" and one
@@ -39,9 +39,13 @@
 // MN-major from the same swizzled tile; with the remainder P keeps about 16
 // bits instead of 8, at the cost of a second P V product), so the output
 // accumulator never leaves registers. D 96 is loaded as two 64-wide boxes,
-// the second half zero-filled by TMA, and P V runs 128 wide. Query tiles
-// are issued longest first (those near the end of the prompt). Two blocks
-// share an SM, so one block's softmax overlaps the other's products.
+// the second half zero-filled by TMA, and P V runs 128 wide. D 256
+// (RecurrentGemma's heads) keeps O in 128 registers a thread and feeds P
+// to P V one 16-key slice at a time, so the consumer stays inside its 232
+// registers; its 161 KB of shared memory leave one block per SM. Query
+// tiles are issued longest first (those near the end of the prompt). At D
+// <= 128 two blocks share an SM, so one block's softmax overlaps the
+// other's products.
 //
 // f32: the first, CUDA-core kernel (`flash_prefill_kernel<float>`): both
 // products in f32 from shared memory with 4x4 register micro-tiles. It keeps
@@ -264,6 +268,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Fragment i of P (S columns 2i, 2i+1 of this thread's accumulator
+// layout) as a bf16 pair `hi` and the bf16 pair of its remainder `lo`.
+template <int N>
+__device__ __forceinline__ void split_bf16(const float (&p)[N], int i,
+                                           uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p[2 * i], p[2 * i + 1]);
+  const float2 back = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p[2 * i] - back.x, p[2 * i + 1] - back.y);
+}
+
 // Grid (KV * B, query tiles); 256 threads; `P` positions per 64-row tile.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -412,34 +427,56 @@ flash_prefill_wgmma(const __grid_constant__ CUtensorMap tm_q,
       // as a high part and the bf16 remainder, so that P V keeps about 16
       // bits of P: P rounded once to bf16 would err by up to 2^-9 of
       // sum |p v|, more than the output's own rounding
-      uint32_t ph[kBN / 16 * 4], pl[kBN / 16 * 4];
+      if constexpr (C::DP <= 128) {
+        uint32_t ph[kBN / 16 * 4], pl[kBN / 16 * 4];
 #pragma unroll
-      for (int i = 0; i < kBN / 16 * 4; ++i) {
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
-        const float2 back = __bfloat1622float2(hi);
-        ph[i] = *reinterpret_cast<const uint32_t*>(&hi);
-        pl[i] = pack_bf16(sc[2 * i] - back.x, sc[2 * i + 1] - back.y);
-      }
+        for (int i = 0; i < kBN / 16 * 4; ++i) split_bf16(sc, i, ph[i], pl[i]);
 
-      // O += P V: V is MN-major (D contiguous), 16 keys per instruction
-      sm90::wgmma_fence();
+        // O += P V: V is MN-major (D contiguous), 16 keys per instruction
+        sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint64_t db =
-            sm90::desc_sw128(va + s * C::TILE + kk * 16 * 128, kSub, 1024);
-        if constexpr (C::DP == 128) {
-          sm90::wgmma_rs_m64n128k16(o, ph + 4 * kk, db);
-          sm90::wgmma_rs_m64n128k16(o, pl + 4 * kk, db);
-        } else {
-          sm90::wgmma_rs_m64n64k16(o, ph + 4 * kk, db);
-          sm90::wgmma_rs_m64n64k16(o, pl + 4 * kk, db);
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          const uint64_t db =
+              sm90::desc_sw128(va + s * C::TILE + kk * 16 * 128, kSub, 1024);
+          if constexpr (C::DP == 128) {
+            sm90::wgmma_rs_m64n128k16(o, ph + 4 * kk, db);
+            sm90::wgmma_rs_m64n128k16(o, pl + 4 * kk, db);
+          } else {
+            sm90::wgmma_rs_m64n64k16(o, ph + 4 * kk, db);
+            sm90::wgmma_rs_m64n64k16(o, pl + 4 * kk, db);
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(o);
+        sm90::fence_regs(ph);
+        sm90::fence_regs(pl);
+      } else {
+        // D 256: O takes 128 registers a thread, so P goes to the tensor
+        // cores one 16-key slice at a time (8 registers, not 32), each
+        // slice's products finished before the next is split. O's columns
+        // 0-127 and 128-255 are two n128 products, the second reading V's
+        // boxes 2 and 3.
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          uint32_t ph[4], pl[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_bf16(sc, 4 * kk + i, ph[i], pl[i]);
+          const uint32_t vk = va + s * C::TILE + kk * 16 * 128;
+          const uint64_t db0 = sm90::desc_sw128(vk, kSub, 1024);
+          const uint64_t db1 = sm90::desc_sw128(vk + 2 * kSub, kSub, 1024);
+          sm90::wgmma_fence();
+          sm90::wgmma_rs_m64n128k16(o, ph, db0);
+          sm90::wgmma_rs_m64n128k16(o + 64, ph, db1);
+          sm90::wgmma_rs_m64n128k16(o, pl, db0);
+          sm90::wgmma_rs_m64n128k16(o + 64, pl, db1);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(o);
+          sm90::fence_regs(ph);
+          sm90::fence_regs(pl);
         }
       }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait_all();
-      sm90::fence_regs(o);
-      sm90::fence_regs(ph);
-      sm90::fence_regs(pl);
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(empty + s);
     }
@@ -533,7 +570,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype codes: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D in
-// {64, 96, 128}). `positions` query positions per 64-row tile and `q_tiles`
+// {64, 96, 128, 256}). `positions` query positions per 64-row tile and `q_tiles`
 // tiles per (batch, KV head) come from the wrapper's plan. Returns a
 // cudaError_t.
 extern "C" int flash_prefill_forward(const void* q, const void* k,
@@ -559,6 +596,9 @@ extern "C" int flash_prefill_forward(const void* q, const void* k,
                                  positions, q_tiles, st);
     case 128:
       return (int)wg::launch<128>(q, k, v, out, B, Tn, H, KV, window, scale,
+                                  positions, q_tiles, st);
+    case 256:
+      return (int)wg::launch<256>(q, k, v, out, B, Tn, H, KV, window, scale,
                                   positions, q_tiles, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -2,8 +2,8 @@
 ``repro/engine/executor.py``.
 
 RealExecutor   — PyTorch compute against the paged pool (dense and moe
-                 families), on the card by default; the CPU only when the
-                 caller asks.
+                 families) or slot-state caches (ssm and hybrid), on the
+                 card by default; the CPU only when the caller asks.
 SimExecutor    — no compute; the roofline cost model supplies step times and
                  the engine synthesises token ids.
 
@@ -54,32 +54,37 @@ class SimExecutor:
 
 
 class RealExecutor:
-    """Paged-pool PyTorch executor (dense and moe families).
+    """PyTorch executor: the paged pool for dense and moe, one slot-state
+    cache slab over ``max_slots`` slots for ssm and hybrid.
 
-    vlm is refused, as it is in effect in the reference: the reference's
-    executor passes no ``patch_embeds``, so its vlm prefill fails on the
-    missing key; serving images through the engine would be a feature the
-    JAX package lacks.
+    vlm and audio are refused, as they are in effect in the reference: its
+    executor passes neither ``patch_embeds`` nor ``frames`` to prefill, so
+    its prefill of either fails on the missing key; serving images or audio
+    through the engine would be a feature the JAX package lacks.
 
-    ``params`` is the model's tree of tensors on ``device``. The pool is f32,
-    as in the JAX executor. ``decode_steps`` and ``prefill_computes`` count
-    the model passes this executor ran.
+    ``params`` is the model's tree of tensors on ``device``. The pool and
+    the slab are f32, as in the JAX executor. A decode reads each slab leaf
+    back in the dtype the model's own cache has at the params' dtype (the
+    slab holds those values exactly, being written from them) and runs
+    ``decode_fn`` on it, as the reference's ``decode_fn`` runs on its own
+    caches. ``decode_steps`` and ``prefill_computes`` count the model passes
+    this executor ran.
     """
 
     needs_logits = True
 
     def __init__(self, cfg: ModelConfig, params, num_blocks: int,
                  block_size: int, hw: HardwareConfig, tp: int = 1,
-                 max_model_len: int = 4096, device="cuda"):
+                 max_model_len: int = 4096, max_slots: int = 64,
+                 device="cuda"):
         self.device = require_device(device)
-        if cfg.family == "vlm":
+        if cfg.family in ("vlm", "audio"):
+            inputs = {"vlm": "patch embeddings", "audio": "audio frames"}
             raise NotImplementedError(
-                "RealExecutor: vlm is not served through the engine: requests "
-                "carry no patch embeddings (neither does the reference's "
-                "executor, whose vlm prefill fails on the missing key)")
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"RealExecutor: family {cfg.family!r} "
-                                      f"is not ported yet (dense, moe)")
+                f"RealExecutor: {cfg.family} is not served through the "
+                f"engine: requests carry no {inputs[cfg.family]} (neither "
+                f"does the reference's executor, whose {cfg.family} prefill "
+                f"fails on the missing key)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         leaf = params["embedding"]["tok"]
@@ -89,10 +94,20 @@ class RealExecutor:
         self.cfg = cfg
         self.params = params
         self.block_size = block_size
+        self.max_model_len = max_model_len
         self.cost = RooflineCost(cfg, hw, tp=tp)
-        self.pool = paged_model.init_pool(cfg, num_blocks, block_size,
-                                          device=self.device)
-        self.mb = -(-max_model_len // block_size)
+        self.paged = cfg.family in ("dense", "moe")
+        if self.paged:
+            self.pool = paged_model.init_pool(cfg, num_blocks, block_size,
+                                              device=self.device)
+            self.mb = -(-max_model_len // block_size)
+        else:
+            self.cache = api.init_cache(cfg, max_slots, max_model_len,
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self.cache_dtypes = {
+                k: v.dtype for k, v in api.init_cache(
+                    cfg, 1, 1, dtype=leaf.dtype, device="meta").items()}
         self.decode_steps = 0
         self.prefill_computes = 0
 
@@ -116,19 +131,35 @@ class RealExecutor:
         toks = self._tensor(pf["token_ids"], np.int64)[None]
         logits, cache = api.prefill_fn(self.params, self.cfg,
                                        {"tokens": toks})
-        paged_model.write_prefill(self.pool, cache,
-                                  self._tensor(pf["block_table"], np.int64),
-                                  self.block_size)
+        if self.paged:
+            paged_model.write_prefill(
+                self.pool, cache, self._tensor(pf["block_table"], np.int64),
+                self.block_size)
+        else:
+            cache = api.pad_cache(self.cfg, cache, self.max_model_len)
+            for key, slab in self.cache.items():
+                slab[:, pf["slot"]] = cache[key][:, 0]
         self.prefill_computes += 1
         return logits[0].float().cpu().numpy()
 
     def _decode(self, dec: dict):
-        bt = np.zeros((len(dec["slots"]), self.mb), np.int32)
-        for i, table in enumerate(dec["block_tables"]):
-            bt[i, :len(table)] = table
-        logits, _ = paged_model.decode_step(
-            self.params, self.cfg, self._tensor(dec["tokens"], np.int64),
-            self._tensor(dec["pos"], np.int64), self.pool,
-            self._tensor(bt, np.int32))
+        toks = self._tensor(dec["tokens"], np.int64)
+        pos = self._tensor(dec["pos"], np.int64)
+        if self.paged:
+            bt = np.zeros((len(dec["slots"]), self.mb), np.int32)
+            for i, table in enumerate(dec["block_tables"]):
+                bt[i, :len(table)] = table
+            logits, _ = paged_model.decode_step(
+                self.params, self.cfg, toks, pos, self.pool,
+                self._tensor(bt, np.int32))
+        else:
+            # gather the slots' caches, run decode_fn, scatter them back
+            slots = self._tensor(dec["slots"], np.int64)
+            cache = {k: slab.index_select(1, slots).to(self.cache_dtypes[k])
+                     for k, slab in self.cache.items()}
+            logits, cache = api.decode_fn(self.params, self.cfg, toks, cache,
+                                          pos)
+            for key, slab in self.cache.items():
+                slab.index_copy_(1, slots, cache[key].to(slab.dtype))
         self.decode_steps += 1
         return logits.float().cpu().numpy()

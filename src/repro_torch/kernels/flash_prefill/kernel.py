@@ -21,7 +21,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = 64     # the QPK heads of a run of positions stack into 64 rows
 KEY_TILE = 64      # keys per K/V tile of the bf16 kernel
 MAX_Q_PER_KV = TILE_ROWS
-WGMMA_HEAD_DIMS = (64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,7 @@ def _entry():
 def flash_prefill(q, k, v, window: int = 0):
     """q: (B, T, H, D); k/v: (B, T, KV, D) -> (B, T, H, D). Any T; all
     tensors contiguous and 16-byte aligned on one CUDA device, one dtype:
-    f32 (any D up to 256) or bf16 (D 64, 96 or 128)."""
+    f32 (any D up to 256) or bf16 (D 64, 96, 128 or 256)."""
     b, t, h, d = q.shape
     dev = q.get_device()  # -1 on the CPU; ints keep the checks cheap
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:

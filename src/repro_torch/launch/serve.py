@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mistral-small-24b --requests 4
 
+Every family but vlm and audio serves this way (those two need inputs that
+requests do not carry; see ``RealExecutor``).
+
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
 Prints each request's tokens and its wall-clock TTFT and latency.
 """
@@ -25,21 +28,34 @@ from repro_torch.kernels import build
 from repro_torch.models import api
 
 PROMPT_LENS = (37, 300, 1000, 1500)   # cycled over the requests
+# mamba2 prefills a whole prompt with the chunked SSD scan, which takes a
+# length below its chunk (256 at full width) or a multiple of it, as the
+# reference's does
+SSM_PROMPT_LENS = (37, 256, 1024, 1536)
 NEW_TOKENS = 16                       # greedy tokens per request
+STATE_FAMILIES = ("ssm", "hybrid")    # served from slot-state caches
+
+
+def prompt_lens(cfg):
+    return SSM_PROMPT_LENS if cfg.family == "ssm" else PROMPT_LENS
 
 
 def build_engine(cfg, params, device="cuda", num_blocks: int = 1024,
                  block_size: int = 16, max_num_seqs: int = 8,
                  max_prefill_tokens: int = 512, max_model_len: int = 4096):
     """RealExecutor + LLMEngine for ``cfg`` on ``device`` (roofline timing
-    against the H100)."""
+    against the H100). The state families keep one cache slot per sequence
+    and serve without prefix caching, as the reference's engine test of the
+    state executor does."""
     ex = RealExecutor(cfg, params, num_blocks=num_blocks,
                       block_size=block_size, hw=GPU_H100,
-                      max_model_len=max_model_len, device=device)
+                      max_model_len=max_model_len, max_slots=max_num_seqs,
+                      device=device)
     return LLMEngine(cfg, ex, num_blocks=num_blocks, block_size=block_size,
                      max_num_seqs=max_num_seqs,
                      max_prefill_tokens=max_prefill_tokens,
-                     max_model_len=max_model_len)
+                     max_model_len=max_model_len,
+                     enable_prefix_caching=cfg.family not in STATE_FAMILIES)
 
 
 def make_prompts(vocab_size: int, lengths, seed: int):
@@ -94,7 +110,8 @@ def main(argv=None):
     gen = torch.Generator(device).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device)
     engine = build_engine(cfg, params, device)
-    lens = [PROMPT_LENS[i % len(PROMPT_LENS)] for i in range(args.requests)]
+    cycle = prompt_lens(cfg)
+    lens = [cycle[i % len(cycle)] for i in range(args.requests)]
     prompts = make_prompts(cfg.vocab_size, lens, args.seed)
     if device.type == "cuda":
         build.build_all()  # compile before the clock starts, not in TTFT

@@ -1,4 +1,4 @@
-"""Shared PyTorch building blocks of the dense decoder: the serving subset of
+"""Shared PyTorch building blocks of the model zoo: the serving subset of
 the JAX package's ``models/common.py``.
 
 Parameters are nested dicts of tensors with the JAX tree's keys and layouts
@@ -6,6 +6,8 @@ Parameters are nested dicts of tensors with the JAX tree's keys and layouts
 weights carry over unchanged through ``repro_torch.params``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +29,16 @@ def rms_norm(x, scale, eps=1e-6):
     ss = (xf * xf).sum(-1, keepdim=True)
     r = torch.rsqrt(ss / x.shape[-1] + eps)
     return ((xf * r) * scale.float()).to(dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm with bias, computed in f32 and cast back to x's dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * scale.float() + bias.float()).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -61,22 +73,31 @@ def _proj(x, w):
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def _qkv(p, cfg: ModelConfig, x, positions):
+def _qkv(p, cfg: ModelConfig, x, positions, rope: bool = True):
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:  # rope_theta == 0 -> positions are learned
+    if rope and cfg.rope_theta > 0:  # rope_theta == 0 -> positions are learned
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def promoted(*xs):
+    """The tensors in the dtype JAX would compute a product of them in: a
+    bf16 activation against an f32 state is an f32 product there, while
+    ``torch.matmul`` and ``einsum`` refuse mixed dtypes."""
+    dtype = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return tuple(x.to(dtype) for x in xs)
+
+
 def _out_proj(a, wo):
-    """(..., H, D) @ (H, D, d) -> (..., d)."""
+    """(..., H, D) @ (H, D, d) -> (..., d), in their promoted dtype."""
     h, k, d = wo.shape
+    a, wo = promoted(a, wo)
     return a.reshape(*a.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
@@ -88,14 +109,16 @@ def repeat_kv(k, q_per_kv: int):
 
 
 def mha(q, k, v, mask, q_per_kv: int):
-    """q: (B,T,H,D); k,v: (B,S,KV,D); mask broadcastable to (B,1,T,S)."""
+    """q: (B,T,H,D); k,v: (B,S,KV,D); mask broadcastable to (B,1,T,S).
+    Products run in the operands' promoted dtype, as in JAX; the softmax's
+    probabilities are cast to q's dtype first."""
     k = repeat_kv(k, q_per_kv)
     v = repeat_kv(v, q_per_kv)
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    logits = torch.einsum("bthd,bshd->bhts", *promoted(q, k)).float() * scale
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    return torch.einsum("bhts,bshd->bthd", *promoted(probs, v))
 
 
 def causal_mask(t: int, window: int = 0, device=None):
@@ -146,36 +169,55 @@ def plain_prefill_attention(q, k, v, window: int = 0):
     return chunked_causal_mha(q, k, v, q.shape[2] // k.shape[2], window)
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos):
+def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
+                     window: int = 0):
     """One-token decode against a dense (B, S, KV, D) cache.
 
-    pos: (B,) absolute position of the new token. The cache is updated in
-    place (JAX's functional ``.at[].set`` becomes an indexed write) and
-    returned. Returns (out, cache_k, cache_v).
+    pos: (B,) absolute position of the new token. With a window the cache
+    is a rolling buffer of ``window`` slots, position p at slot p % window.
+    The cache is updated in place (JAX's functional ``.at[].set`` becomes an
+    indexed write) and returned. Returns (out, cache_k, cache_v).
     """
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
+    slot = pos % window if window else pos
     bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, pos] = v[:, 0].to(cache_v.dtype)
+    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
     s = cache_k.shape[1]
-    valid = torch.arange(s, device=x.device)[None, :] <= pos[:, None]
+    j = torch.arange(s, device=x.device)[None, :]
+    if window:
+        # rolling slot j holds absolute position pos - ((slot - j) % window)
+        valid = pos[:, None] - (slot[:, None] - j) % window >= 0
+    else:
+        valid = j <= pos[:, None]
     out = mha(q, cache_k, cache_v, valid[:, None, None, :], cfg.q_per_kv)
     return _out_proj(out, p["wo"]), cache_k, cache_v
 
 
-def attention_prefill(p, cfg: ModelConfig, x, attention=None):
-    """Prefill: full causal pass that also returns the populated cache.
+def attention_prefill(p, cfg: ModelConfig, x, attention=None,
+                      window: int = 0):
+    """Prefill: full causal (optionally windowed) pass that also returns the
+    populated cache.
 
-    ``attention(q, k, v)`` computes the attention itself. It defaults to the
-    flash-prefill op: the hand-written kernel on a CUDA tensor, its plain
-    version on a CPU tensor. Returns (out, k_cache, v_cache), caches
-    (B, T, KV, D).
+    ``attention(q, k, v, window)`` computes the attention itself. It
+    defaults to the flash-prefill op: the hand-written kernel on a CUDA
+    tensor, its plain version on a CPU tensor. Returns (out, k_cache,
+    v_cache): caches (B, T, KV, D), or with a window the last ``window``
+    positions in rolling-buffer layout (position p at slot p % window),
+    zero-padded to ``window`` slots when T is shorter.
     """
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, positions)
-    out = (attention or fp_ops.flash_prefill)(q, k, v)
+    out = (attention or fp_ops.flash_prefill)(q, k, v, window)
+    if window and t >= window:
+        shift = (t - window) % window
+        k = torch.roll(k[:, t - window:], shift, dims=1)
+        v = torch.roll(v[:, t - window:], shift, dims=1)
+    elif window:
+        k = F.pad(k, (0, 0, 0, 0, 0, window - t))
+        v = F.pad(v, (0, 0, 0, 0, 0, window - t))
     return _out_proj(out, p["wo"]), k, v
 
 

@@ -33,7 +33,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     ``w_down``, a shared SwiGLU of width moe_d_ff * num_shared_experts. Each
     leaf is drawn directly in its dtype: at full width one expert leaf alone
     is tens of GB."""
-    normal, ones = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
+    normal, ones, _ = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
                                require_device(device))
     n, d = cfg.num_layers, cfg.d_model
     e, f = cfg.num_experts, cfg.moe_d_ff

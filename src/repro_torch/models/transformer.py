@@ -22,9 +22,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # --------------------------------------------------------------------------
 
 def drawers(generator: torch.Generator, dtype, device):
-    """(normal(shape, std), ones(shape)): leaves drawn directly in ``dtype``
-    on ``device`` (no f32 temporary), from ``generator``, which must live on
-    ``device``."""
+    """(normal(shape, std), ones(shape), zeros(shape)): leaves made directly
+    in ``dtype`` on ``device`` (no f32 temporary), the normal ones drawn from
+    ``generator``, which must live on ``device``."""
     def normal(shape, std):
         t = torch.empty(shape, dtype=dtype, device=device)
         return t.normal_(0.0, std, generator=generator)
@@ -32,22 +32,39 @@ def drawers(generator: torch.Generator, dtype, device):
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    return normal, ones
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return normal, ones, zeros
 
 
-def init_attention(cfg: ModelConfig, normal, ones):
-    """Stacked attention leaves of ``cfg.num_layers`` layers."""
-    d, hd, n = cfg.d_model, cfg.head_dim, cfg.num_layers
+def init_attention(cfg: ModelConfig, normal, ones, n: int | None = None,
+                   cross: bool = False):
+    """Stacked attention leaves of ``n`` layers (default ``cfg.num_layers``);
+    a cross-attention has no qk-norm."""
+    d, hd = cfg.d_model, cfg.head_dim
+    n = cfg.num_layers if n is None else n
     attn = {
         "wq": normal((n, d, cfg.num_heads, hd), d ** -0.5),
         "wk": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
         "wv": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
         "wo": normal((n, cfg.num_heads, hd, d), (cfg.num_heads * hd) ** -0.5),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         attn["q_norm"] = ones((n, hd))
         attn["k_norm"] = ones((n, hd))
     return attn
+
+
+def init_mlp(normal, zeros, n: int, d: int, f: int, gated: bool = True):
+    """Stacked MLP leaves of ``n`` layers: SwiGLU, or a GELU MLP with biases
+    (zeros) when not ``gated``."""
+    if gated:
+        return {"w_gate": normal((n, d, f), d ** -0.5),
+                "w_up": normal((n, d, f), d ** -0.5),
+                "w_down": normal((n, f, d), f ** -0.5)}
+    return {"w_up": normal((n, d, f), d ** -0.5), "b_up": zeros((n, f)),
+            "w_down": normal((n, f, d), f ** -0.5), "b_down": zeros((n, d))}
 
 
 def init_embedding(cfg: ModelConfig, normal):
@@ -62,18 +79,14 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random weights drawn from ``generator`` (which must live on
     ``device``): normal with std fan_in^-0.5 for projections, 0.02 for the
     token embedding, ones for norm scales, as the JAX initializer does."""
-    normal, ones = drawers(generator, _DTYPES[cfg.param_dtype],
-                           require_device(device))
+    normal, ones, zeros = drawers(generator, _DTYPES[cfg.param_dtype],
+                                  require_device(device))
     d, n = cfg.d_model, cfg.num_layers
     p = {
         "embedding": init_embedding(cfg, normal),
         "layers": {
             "attn": init_attention(cfg, normal, ones),
-            "mlp": {
-                "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
-                "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
-                "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
-            },
+            "mlp": init_mlp(normal, zeros, n, d, cfg.d_ff),
             "ln1": ones((n, d)),
             "ln2": ones((n, d)),
         },

@@ -179,7 +179,7 @@ def test_flash_prefill_kernel_matches_plain(b, t, h, kv, d, window, dtype,
 
 
 @pytest.mark.parametrize("window", [0, 48], ids=["causal", "window48"])
-@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("qpk", [1, 2, 3, 4, 8, 16])
 @pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 1500, 2049])
 def test_flash_prefill_bf16_tensor_cores(t, qpk, d, window, gen):
@@ -195,9 +195,31 @@ def test_flash_prefill_bf16_tensor_cores(t, qpk, d, window, gen):
     _close(out, ref.flash_prefill_ref(q, k, v, window), TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("t,h,kv,window", [
+    (37, 16, 1, 2048),
+    (1500, 16, 1, 2048),
+    (3072, 16, 1, 2048),     # past the window: tiles skipped at both ends
+    (1500, 16, 1, 0),
+    (1499, 16, 1, 2048),     # ragged: the last tile's positions past T
+    (1001, 6, 2, 0),         # QPK 3: 63 live rows, a dead one
+])
+def test_flash_prefill_bf16_head_dim_256(t, h, kv, window, gen):
+    """RecurrentGemma's attention (D 256, QPK 16, window 2048) on the
+    tensor-core kernel, at the bf16 output's rounding."""
+    from repro_torch.kernels.flash_prefill import kernel, ref
+    d = 256
+    q = torch.randn(1, t, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, t, kv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, t, kv, d, generator=gen, device="cuda").bfloat16()
+    before = kernel.flash_prefill.launches
+    out = kernel.flash_prefill(q, k, v, window)
+    assert kernel.flash_prefill.launches == before + 1
+    _close(out, ref.flash_prefill_ref(q, k, v, window), TOL[torch.bfloat16])
+
+
 def test_flash_prefill_kernel_rejects_bad_inputs(gen):
-    """bf16 takes D 64, 96 and 128 only, and never falls to the CUDA-core
-    kernel; q must be contiguous."""
+    """bf16 takes D 64, 96, 128 and 256 only, and never falls to the
+    CUDA-core kernel; q must be contiguous."""
     from repro_torch.kernels.flash_prefill import kernel
     q = torch.randn(1, 16, 4, 80, generator=gen, device="cuda").bfloat16()
     k = torch.randn(1, 16, 2, 80, generator=gen, device="cuda").bfloat16()
@@ -287,6 +309,64 @@ def test_moe_engine_on_card_matches_cpu(gen):
             now += max(eng.step(now).elapsed, 1e-4)
         outs[device] = [r.output_tokens for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+def _serve_state(cfg, params, device, lens, n_new=6):
+    """Greedy tokens of prompts of ``lens`` through the slot-state engine."""
+    from repro_torch.config import GPU_H100
+    from repro_torch.engine.engine import LLMEngine
+    from repro_torch.engine.executor import RealExecutor
+    from repro_torch.engine.request import Request, SamplingParams
+    ex = RealExecutor(cfg, _to(params, device), num_blocks=64, block_size=16,
+                      hw=GPU_H100, max_model_len=256, max_slots=4,
+                      device=device)
+    eng = LLMEngine(cfg, ex, num_blocks=64, block_size=16, max_num_seqs=4,
+                    max_prefill_tokens=32, max_model_len=256,
+                    enable_prefix_caching=False)
+    reqs = [Request(prompt_tokens=list(range(3, 3 + n)), sampling=SamplingParams(
+        temperature=0.0, max_new_tokens=n_new)) for n in lens]
+    for r in reqs:
+        eng.add_request(r, 0.0)
+    now = 0.0
+    while eng.has_work():
+        now += max(eng.step(now).elapsed, 1e-4)
+    assert all(r.status.value == "finished" for r in reqs)
+    return [r.output_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("name,layers,lens", [
+    ("mamba2-780m", 2, (11, 64, 96)),
+    ("recurrentgemma-9b", 5, (11, 70, 130)),
+], ids=["ssm", "hybrid"])
+def test_state_engine_on_card_matches_cpu(name, layers, lens, gen):
+    """Reduced mamba2 (2 layers) and griffin (5: a group and a tail) served
+    on the card through the slot-state executor give the CPU port's greedy
+    tokens, f32; the hybrid's prompts pass its window of 64."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = dataclasses.replace(configs.get(name).reduced(), num_layers=layers)
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    assert _serve_state(cfg, params, "cuda", lens) == \
+        _serve_state(cfg, params, "cpu", lens)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b"])
+def test_state_engine_bf16_weights_over_f32_slabs(name, gen):
+    """bf16 weights with the executor's f32 slab on the card (head_dim 64,
+    so that the hybrid's prefill runs the tensor-core kernel): decode reads
+    the slab back in the model's cache dtypes and runs without a dtype
+    error; every request gets its tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_prefill import kernel
+    from repro_torch.models import api
+    cfg = dataclasses.replace(configs.get(name).reduced(),
+                              param_dtype="bfloat16", head_dim=64)
+    params = api.init_params(cfg, gen, "cuda")
+    before = kernel.flash_prefill.launches
+    toks = _serve_state(cfg, params, "cuda", (9, 32, 64), n_new=4)
+    assert all(len(t) == 4 for t in toks)
+    attn_layers = cfg.num_layers // 3 if cfg.family == "hybrid" else 0
+    assert kernel.flash_prefill.launches - before == 3 * attn_layers
 
 
 def _moe_layer(cfg, gen):

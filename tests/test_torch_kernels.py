@@ -203,25 +203,36 @@ def test_flash_plan_tiles_cover_every_position(t, h, kv, d):
     assert plan(b, t, h, kv, d, torch.float32) == p
 
 
-@pytest.mark.parametrize("d", [32, 80, 256])
+@pytest.mark.parametrize("d", [32, 80, 160, 256])
 def test_flash_plan_bf16_takes_only_the_configs_head_widths(d):
-    """bf16 takes D 64, 96 and 128, the head widths of every config; any
-    other raises rather than taking the CUDA-core kernel. f32 takes them."""
+    """bf16 takes D 64, 96, 128 and 256, the head widths of every config;
+    any other raises rather than taking the CUDA-core kernel. f32 takes
+    them all."""
     from repro_torch.kernels.flash_prefill.kernel import plan
-    with pytest.raises(ValueError, match="head_dim"):
-        plan(1, 10, 4, 2, d, torch.bfloat16)
+    if d == 256:   # recurrentgemma-9b's heads
+        assert plan(1, 10, 4, 2, d, torch.bfloat16) == plan(
+            1, 10, 4, 2, 64, torch.bfloat16)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            plan(1, 10, 4, 2, d, torch.bfloat16)
     assert plan(1, 10, 4, 2, d, torch.float32) == plan(1, 10, 4, 2, 64,
                                                           torch.bfloat16)
 
 
 def test_flash_plan_head_widths_match_the_configs():
+    """Every config with attention has a bf16 flash-prefill width; every
+    config of the paged path a paged-decode width and QPK."""
     from repro_torch import configs
     from repro_torch.kernels.flash_prefill.kernel import WGMMA_HEAD_DIMS
     from repro_torch.kernels.paged_attention.kernel import (HEAD_DIMS,
                                                             MAX_Q_PER_KV)
     for cfg in configs.CONFIGS.values():
-        assert cfg.head_dim in WGMMA_HEAD_DIMS and cfg.head_dim in HEAD_DIMS
-        assert cfg.q_per_kv <= MAX_Q_PER_KV
+        if cfg.num_heads:
+            assert cfg.head_dim in WGMMA_HEAD_DIMS, cfg.name
+        if cfg.family in ("dense", "vlm", "moe"):
+            assert cfg.head_dim in HEAD_DIMS and cfg.q_per_kv <= MAX_Q_PER_KV
+    assert {c.family for c in configs.CONFIGS.values()
+            if not c.num_heads} == {"ssm"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "heads"])

@@ -167,10 +167,11 @@ def test_plain_attention_prefill_matches_default(rng):
 def test_torch_init_matches_jax_tree():
     """The port's own initializer builds the JAX tree: same keys, shapes and
     dtypes, and the normal leaves have the JAX fan-in scales, for every
-    family of the paged path (moe with and without a shared expert, vlm's
-    vision projection)."""
+    family (moe with and without a shared expert, vlm's vision projection,
+    the hybrid's groups, whisper's encoder and decoder stacks)."""
     for name in ("qwen3-1.7b", "mistral-small-24b", "qwen3-moe-30b-a3b",
-                 "kimi-k2-1t-a32b", "pixtral-12b", "minicpm-2b"):
+                 "kimi-k2-1t-a32b", "pixtral-12b", "minicpm-2b",
+                 "mamba2-780m", "recurrentgemma-9b", "whisper-small"):
         jcfg, tcfg, jp, _ = _jax_params(name)
         gen = torch.Generator("cpu").manual_seed(0)
         tp = tapi.init_params(tcfg, gen, "cpu")

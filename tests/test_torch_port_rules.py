@@ -2,6 +2,7 @@
 its entry points never fall back to the CPU on their own, and weights carry
 across from the JAX package unchanged."""
 import ast
+import functools
 from pathlib import Path
 
 import pytest
@@ -125,7 +126,14 @@ def test_params_round_trip(name):
     for (k, a), (_, b) in zip(flat_a, flat_b):
         assert a.shape == b.shape and a.dtype == b.dtype, k
         np.testing.assert_array_equal(a, b)
-    assert tp["layers"]["attn"]["wq"].shape[0] == jcfg.num_layers
+    # the stacked leading layer axis of each family's tree
+    path = {"ssm": ("layers", "in_proj"), "hybrid": ("groups", "rec1", "w_in"),
+            "audio": ("dec_layers", "attn", "wq")}.get(
+                jcfg.family, ("layers", "attn", "wq"))
+    n = jcfg.num_layers // 3 if jcfg.family == "hybrid" else jcfg.num_layers
+    assert functools.reduce(dict.__getitem__, path, tp).shape[0] == n
+    if jcfg.family == "audio":
+        assert tp["enc_layers"]["attn"]["wq"].shape[0] == jcfg.encoder_layers
 
 
 def test_params_bfloat16_round_trip(rng):
