@@ -9,8 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. each kernel against its plain PyTorch version on the card at the
      serving paths' shapes (Mistral's, Qwen3-30B-A3B's QPK 8,
      RecurrentGemma-9B's D 256 / QPK 16 with and without its 2048 window,
-     Whisper-small's decoder), and at edge cases (every split of paged decode
-     live, a dead tile row and the smallest head width in flash prefill),
+     Whisper-small's decoder at T 37 and 448), and at edge cases (every
+     split of paged decode live, a dead tile row and the smallest head
+     width in flash prefill),
      with its time, the plain version's time, its bound and, for flash
      prefill without a window, scaled_dot_product_attention's time as a
      yardstick. A timed kernel row also gives `device_ms`, the time of one
@@ -29,21 +30,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the model passes that ran them (none of either kernel for Mamba2, no
      paged decode for the state paths). Then one decode step at the run's
      last contexts, timed alone: its wall time, its device time and its
-     byte bound;
+     byte bound. Right after Mistral's path, on its params (not drawn
+     again) once its engine and pool are freed, the control plane serves
+     the same 4 prompts as streaming completions: ControlPlane (Slurm
+     simulation, Web Gateway, router) with two replicas of LLMEngine over
+     RealExecutor on the one card, stepping in turn. Every stream must
+     finish with its 16 tokens, equal to the engine's output tokens; both
+     replicas must have served; the launches must equal the layers x the
+     two executors' passes. It prints each request's virtual and wall-clock
+     TTFT and latency, and the run's wall time split into LLMEngine.step
+     (RealExecutor.step within it) and the rest, the plane's own host time.
+     Then the same plane serves the paper's Table-1 traffic, a burst of 100
+     (benchmarks/table1.py's concurrent_burst), with the same checks and
+     times as quantiles;
   4. after each path, its architecture cut to 2 layers (RecurrentGemma to 5:
      a group and a tail), f32: the engine's greedy tokens (kernel path)
      must equal those of the plain oracle (plain attention in prefill, the
-     model's decode_step);
+     model's decode_step); for Mistral, the control plane's streamed tokens
+     too;
   5. Whisper-small (audio, 12 + 12 layers) at full width through the model
      API: prefill_fn on seeded 1500 x 80 frames (flash prefill launched 12
      times) and 16 decode steps, timed as above; then at 2 layers f32 its
      greedy tokens with the kernel equal those with plain attention;
-  6. one JSON line of per-kernel numbers, all measured in this run but the
+  6. the control plane's own host time per request with the roofline
+     simulator as engine (no card work): Table-1 GPU-L bursts of 100, 500
+     and 1000, through the Web Gateway and straight into the instance, and
+     `python -m repro_torch.launch.serve` with its defaults;
+  7. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -72,6 +91,10 @@ LAYERS = {"mistral-small-24b": 40, "qwen3-moe-30b-a3b": 48,
 ORACLE_LAYERS = {"recurrentgemma-9b": 5}   # others: 2
 AUDIO = "whisper-small"
 AUDIO_PROMPT = 37                          # decoder prompt tokens
+AUDIO_MAX_PROMPT = 448                     # the decoder's longest prompt
+PLANE = "mistral-small-24b"                # served through the control plane
+PLANE_BURST = 100                          # Table-1's smallest concurrency
+PLANE_HOST_BURSTS = (100, 500, 1000)       # Table-1's concurrencies
 
 
 def check(cond, msg):
@@ -259,8 +282,11 @@ def phase_kernels():
               flash_case(gen, bf16, 37, 2048, False, h=16, kv=1, d=256),
               flash_case(gen, bf16, 1499, 2048, False, h=16, kv=1, d=256),
               flash_case(gen, f32, 300, 2048, False, h=16, kv=1, d=256),
-              # Whisper-small's decoder self-attention
-              flash_case(gen, bf16, AUDIO_PROMPT, 0, False, h=12, kv=12,
+              # Whisper-small's decoder self-attention, its path's prompt
+              # and its longest
+              flash_case(gen, bf16, AUDIO_PROMPT, 0, True, h=12, kv=12,
+                         d=64),
+              flash_case(gen, bf16, AUDIO_MAX_PROMPT, 0, True, h=12, kv=12,
                          d=64)]
     for row in list(rows.values()) + others:
         print("kernel-check " + json.dumps(row))
@@ -302,8 +328,8 @@ def expected_counts(cfg, ex):
 
 def phase_path(cfg):
     """``cfg`` at full width and depth serves the 4 requests through the
-    engine; returns the kernels' launches in that run."""
-    from repro_torch.launch import serve
+    engine; returns the kernels' launches in that run and the params."""
+    from repro_torch.launch import drive
     from repro_torch.models import api
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -314,15 +340,15 @@ def phase_path(cfg):
           f"d_model={cfg.d_model} {cfg.param_dtype} weights "
           f"{sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB, init "
           f"{time.perf_counter() - t0:.1f} s")
-    engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
+    engine = drive.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    lens = serve.prompt_lens(cfg)
-    prompts = serve.make_prompts(cfg.vocab_size, lens, seed=0)
+    lens = drive.prompt_lens(cfg)
+    prompts = drive.make_prompts(cfg.vocab_size, lens, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    reqs, timing = serve.serve(engine, prompts, serve.NEW_TOKENS)
+    reqs, timing = drive.serve(engine, prompts, drive.NEW_TOKENS)
     wall = time.perf_counter() - t0
     counts = read_counts()
     ex = engine.executor
@@ -337,7 +363,7 @@ def phase_path(cfg):
          "prefill_computes": ex.prefill_computes, "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     check(all(r.status.value == "finished"
-              and len(r.output_tokens) == serve.NEW_TOKENS for r in reqs),
+              and len(r.output_tokens) == drive.NEW_TOKENS for r in reqs),
           f"{name}: not every request finished with its tokens")
     check(ex.prefill_computes == len(lens) and ex.decode_steps > 0,
           f"{name}: {ex.prefill_computes} prefill computes, "
@@ -349,11 +375,11 @@ def phase_path(cfg):
     logits, _ = api.prefill_fn(params, cfg, {"tokens": toks})
     check(tuple(logits.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{name}: bad logits")
-    ctx = tuple(n + serve.NEW_TOKENS - 1 for n in lens)
+    ctx = tuple(n + drive.NEW_TOKENS - 1 for n in lens)
     step = (decode_step_timing(cfg, params, ex.pool, ctx) if ex.paged
             else state_step_timing(cfg, params, ctx))
     print(f"path {name} decode-step " + json.dumps(step))
-    return counts
+    return counts, params
 
 
 def time_step(step):
@@ -362,7 +388,7 @@ def time_step(step):
     step's five costliest kernels and five costliest PyTorch ops by the
     device time of the kernels each launched itself (ms and calls a
     step)."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import drive
     ms = cuda_ms(step, iters=5, warmup=1)
     from torch.profiler import ProfilerActivity, profile
     n = 3
@@ -371,7 +397,7 @@ def time_step(step):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    by_kernel = serve.device_time_by_kernel(prof, 1.0, top=5)
+    by_kernel = drive.device_time_by_kernel(prof, 1.0, top=5)
     kernels = [{"name": k["name"], "calls": k["calls"] / n,
                 "device_ms": k["device_ms"] / n}
                for k in by_kernel["kernels"][:5]]
@@ -485,19 +511,22 @@ def oracle_generate(cfg, params, prompt, n_new):
 
 
 def phase_oracle(cfg):
-    from repro_torch.launch import serve
+    """At 2 layers f32 (RecurrentGemma 5): the engine's greedy tokens on the
+    kernel path equal the plain oracle's. Returns the params, the prompts
+    and the oracle's tokens."""
+    from repro_torch.launch import drive
     from repro_torch.models import api
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(1),
                              "cuda")
-    engine = serve.build_engine(cfg, params, "cuda", num_blocks=1024,
+    engine = drive.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    prompts = serve.make_prompts(cfg.vocab_size, serve.prompt_lens(cfg),
+    prompts = drive.make_prompts(cfg.vocab_size, drive.prompt_lens(cfg),
                                  seed=1)
     reset_counts()
-    reqs, _ = serve.serve(engine, prompts, serve.NEW_TOKENS)
+    reqs, _ = drive.serve(engine, prompts, drive.NEW_TOKENS)
     counts = read_counts()
-    oracle = [oracle_generate(cfg, params, p, serve.NEW_TOKENS)
+    oracle = [oracle_generate(cfg, params, p, drive.NEW_TOKENS)
               for p in prompts]
     same = [r.output_tokens == o for r, o in zip(reqs, oracle)]
     print(f"oracle {cfg.name} " + json.dumps(
@@ -507,6 +536,372 @@ def phase_oracle(cfg):
                      f"tokens")
     want = expected_counts(cfg, engine.executor)
     check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
+    return params, prompts, oracle
+
+
+def timed_steps(engine, times, card=False):
+    """Appends the wall seconds of each ``engine.step`` to
+    ``times["engine"]`` and, with ``card``, of each ``RealExecutor.step``
+    (synchronized before and after) to ``times["executor"]``."""
+    inner = engine.step
+
+    def step(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        times["engine"].append(time.perf_counter() - t)
+        return out
+
+    engine.step = step
+    if not card:
+        return
+    ex_inner = engine.executor.step
+
+    def ex_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = ex_inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        times["executor"].append(time.perf_counter() - t)
+        return out
+
+    engine.executor.step = ex_step
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Counts the cyclic garbage collector's pauses while the block runs,
+    wherever they fall (plane or engine): {"gc_s": seconds, "gc_runs": n}."""
+    out, start = {"gc_s": 0.0, "gc_runs": 0}, [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            out["gc_s"] += time.perf_counter() - start[0]
+            out["gc_runs"] += 1
+
+    gc.callbacks.append(note)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(note)
+
+
+def plane_up(cfg, params):
+    """The port's control plane (Slurm simulation, Web Gateway, router)
+    with two replicas of LLMEngine over RealExecutor on the card, sharing
+    ``params`` and stepping in turn; both endpoints Ready. Returns the
+    plane, a client, the two engines and their step timers."""
+    from repro_torch.api import AdminClient, ServingClient
+    from repro_torch.config import GPU_H100
+    from repro_torch.core.controller import ClusterSpec, ControlPlane
+    from repro_torch.launch import serve
+    build = serve.engine_factory(params, "cuda", num_blocks=1024,
+                                 block_size=16, max_num_seqs=8,
+                                 max_prefill_tokens=512, max_model_len=4096)
+    engines, times = [], {"engine": [], "executor": []}
+
+    def factory(c, tp):
+        engine = build(c, tp)
+        timed_steps(engine, times, card=True)
+        engines.append(engine)
+        return engine
+
+    cp = ControlPlane(ClusterSpec(num_nodes=2, gpus_per_node=1,
+                                  hardware=GPU_H100), engine_factory=factory)
+    cp.add_tenant("smoke", "sk-smoke")
+    cp.register_model(cfg)
+    admin = AdminClient(cp)
+    admin.apply(model=cfg.name, replicas=2, min_replicas=2, max_replicas=2,
+                est_load_time=45.0)
+    ready = admin.wait(cfg.name, "Ready", timeout=300.0)
+    check(ready and len(cp.ready_endpoints(cfg.name)) == 2,
+          f"{cfg.name}: the two endpoints are not Ready")
+    client = ServingClient(cp, api_key="sk-smoke", default_model=cfg.name)
+    return cp, client, engines, times
+
+
+def plane_run(cp, client, wires, times):
+    """Submits the streaming completions ``wires`` at once and runs the
+    plane until every stream closes. Returns the streams and the run's
+    timing: its wall time, the time inside LLMEngine.step and inside
+    RealExecutor.step, and per request its wall-clock TTFT and latency.
+    The wall time less the engines' steps is the plane's own host time:
+    gateway, router, instances and the event loop."""
+    for v in times.values():
+        v.clear()
+    first, last = {}, {}
+    streams = []
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        for i, w in enumerate(wires):
+            s = client.completions(w)
+            s.subscribe(lambda req, tok, t, i=i: first.setdefault(
+                i, time.perf_counter() - t0))
+            s.on_done(lambda stream, i=i: last.setdefault(
+                i, time.perf_counter() - t0))
+            streams.append(s)
+        cp.loop.run_while(lambda: any(not s.closed for s in streams),
+                          max_t=cp.loop.now + 3600.0)
+        wall = time.perf_counter() - t0
+    engine_s, executor_s = sum(times["engine"]), sum(times["executor"])
+    timing = {"requests": len(wires), "wall_s": wall,
+              "engine_step_s": engine_s, "executor_step_s": executor_s,
+              "engine_steps": len(times["engine"]),
+              "engine_host_s": engine_s - executor_s,
+              "plane_host_s": wall - engine_s,
+              "plane_host_s_per_request": (wall - engine_s) / len(wires),
+              **pauses, "per_request": [{"ttft_s": first.get(i),
+                               "latency_s": last.get(i)}
+                              for i in range(len(wires))]}
+    return streams, timing
+
+
+def plane_wires(cfg, prompts):
+    from repro_torch.api import CompletionRequest
+    from repro_torch.launch import drive
+    return [CompletionRequest(model=cfg.name, prompt=list(p),
+                              temperature=0.0, max_tokens=drive.NEW_TOKENS,
+                              stream=True) for p in prompts]
+
+
+def quantiles(xs):
+    xs = sorted(xs)
+    return {"p50": xs[len(xs) // 2], "p99": xs[min(len(xs) - 1,
+                                                   int(0.99 * len(xs)))],
+            "max": xs[-1]}
+
+
+def plane_passes(exs):
+    return [(ex.prefill_computes, ex.decode_steps) for ex in exs]
+
+
+def plane_launches_want(cfg, before, exs):
+    """The launches of a plane run: layers x each kernel's passes, summed
+    over both executors since ``before`` (their passes then)."""
+    return {"paged_attention": sum(cfg.num_layers * (ex.decode_steps - d)
+                                   for ex, (_, d) in zip(exs, before)),
+            "flash_prefill": sum(cfg.num_layers * (ex.prefill_computes - p)
+                                 for ex, (p, _) in zip(exs, before))}
+
+
+def phase_plane(cfg, params):
+    """Mistral-Small-24B at full width served through the control plane to
+    two replicas on the one card (``params``: the path phase's tree, not
+    drawn again): the 4 prompts, then the Table-1 burst of
+    ``PLANE_BURST`` requests. Returns the kernels' launches in each run."""
+    from repro_torch.api import CompletionRequest
+    from repro_torch.data.burstgpt import concurrent_burst
+    from repro_torch.launch import drive
+    name = cfg.name
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"plane {name}: memory allocated before the plane "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    prompts = drive.make_prompts(cfg.vocab_size, drive.prompt_lens(cfg),
+                                 seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    cp, client, engines, times = plane_up(cfg, params)
+    exs = [e.executor for e in engines]
+    reset_counts()
+    streams, timing = plane_run(cp, client, plane_wires(cfg, prompts), times)
+    counts = read_counts()
+    per_request = timing.pop("per_request")
+    for s, t in zip(streams, per_request):
+        r = s.req
+        print(f"plane {name} request " + json.dumps(
+            {"prompt_len": r.prompt_len, "status": r.status.value,
+             "virtual_ttft_s": r.metrics.ttft, "virtual_e2el_s":
+             r.metrics.e2el, "wall_ttft_s": t["ttft_s"],
+             "wall_latency_s": t["latency_s"],
+             "tokens": [e.token for e in s.events]}))
+    print(f"plane {name} " + json.dumps(
+        {"replicas": len(engines), **timing,
+         "prefill_computes": [ex.prefill_computes for ex in exs],
+         "decode_steps": [ex.decode_steps for ex in exs],
+         "launches": counts,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    check(all(s.ok and len(s.events) == drive.NEW_TOKENS for s in streams),
+          f"{name}: not every stream finished with its tokens")
+    check(all([e.token for e in s.events] == s.req.output_tokens
+              and all(type(e.token) is int for e in s.events)
+              for s in streams), f"{name}: streamed tokens != served tokens")
+    check(len(exs) == 2 and all(ex.prefill_computes > 0 for ex in exs),
+          f"{name}: the router did not use both replicas")
+    want = plane_launches_want(cfg, [(0, 0)] * 2, exs)
+    check(counts == want, f"{name} plane: launches {counts}, want {want}")
+
+    # the paper's Table-1 traffic on GPU-L: a burst submitted at once,
+    # prompts mostly sharing a prefix (the plane's queueing, routing among
+    # queued streams and periodic ticks at a real concurrency)
+    wl = concurrent_burst(PLANE_BURST, seed=0,
+                          vocab=min(cfg.vocab_size, 32000))
+    before = plane_passes(exs)
+    reset_counts()
+    streams, timing = plane_run(cp, client, [
+        CompletionRequest.from_engine(r, name, stream=True)
+        for r in wl.requests], times)
+    burst_counts = read_counts()
+    per_request = timing.pop("per_request")
+    reqs = [s.req for s in streams]
+    ok = [s for s in streams if s.ok]
+    print(f"plane {name} burst " + json.dumps(
+        {"virtual_s": max(r.metrics.finish_time or 0.0 for r in reqs)
+         - min(r.metrics.arrival_time for r in reqs), **timing,
+         "finished": len(ok),
+         "output_tokens": sum(len(s.events) for s in streams),
+         "virtual_ttft_s": quantiles([r.metrics.ttft for r in reqs]),
+         "virtual_e2el_s": quantiles([r.metrics.e2el for r in reqs]),
+         "wall_ttft_s": quantiles([t["ttft_s"] for t in per_request]),
+         "wall_latency_s": quantiles([t["latency_s"] for t in per_request]),
+         "passes": [[p - p0, d - d0] for (p, d), (p0, d0)
+                    in zip(plane_passes(exs), before)],
+         "preemptions": [e.metrics.preemptions for e in engines],
+         "launches": burst_counts,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    check(len(ok) == len(streams) and all(
+        len(s.events) == r.sampling.max_new_tokens
+        for s, r in zip(streams, wl.requests)),
+          f"{name} burst: {len(ok)} of {len(streams)} streams finished")
+    want = plane_launches_want(cfg, before, exs)
+    check(burst_counts == want,
+          f"{name} burst: launches {burst_counts}, want {want}")
+    cp.shutdown()
+    return counts, burst_counts
+
+
+def phase_plane_oracle(cfg, params, prompts, oracle):
+    """The same plane at 2 layers f32: its streamed tokens equal the plain
+    oracle's."""
+    cp, client, _, times = plane_up(cfg, params)
+    streams, _ = plane_run(cp, client, plane_wires(cfg, prompts), times)
+    cp.shutdown()
+    same = [[e.token for e in s.events] == o for s, o in zip(streams, oracle)]
+    print(f"oracle {cfg.name} plane " + json.dumps(
+        {"layers": cfg.num_layers, "dtype": cfg.param_dtype,
+         "equal": same}))
+    check(all(same), f"{cfg.name}: the plane's tokens and the plain oracle's "
+                     f"disagree")
+
+
+def plane_host_sim(n, mode):
+    """The plane's own host time under the paper's Table-1 traffic on
+    GPU-L (benchmarks/table1.py's plane: 2 nodes x 2 H100s, one replica of
+    Mistral-Small-24B, 11 000 blocks, 256 sequences, prefill 2048, the
+    roofline simulator as engine): a burst of ``n`` through the Web
+    Gateway (mode "gateway", after one warm-up request) or straight into
+    the instance ("direct"). The card does nothing here; the wall time
+    less LLMEngine.step is the plane's Python on this host."""
+    from repro_torch import configs
+    from repro_torch.api import CompletionRequest, ServingClient
+    from repro_torch.config import GPU_H100
+    from repro_torch.core.controller import ClusterSpec, ControlPlane
+    from repro_torch.data.burstgpt import concurrent_burst
+    from repro_torch.engine.engine import LLMEngine
+    from repro_torch.engine.executor import SimExecutor
+    spec = ClusterSpec(num_nodes=2, gpus_per_node=2, hardware=GPU_H100,
+                       num_blocks=11_000, block_size=16, max_num_seqs=256,
+                       max_model_len=32_768, max_prefill_tokens=2048)
+    times = {"engine": []}
+
+    def factory(c, tp):
+        engine = LLMEngine(c, SimExecutor(c, GPU_H100, tp=1, efficiency=0.5),
+                           num_blocks=spec.num_blocks,
+                           block_size=spec.block_size,
+                           max_num_seqs=spec.max_num_seqs,
+                           max_prefill_tokens=spec.max_prefill_tokens,
+                           max_model_len=spec.max_model_len)
+        timed_steps(engine, times)
+        return engine
+
+    cp = ControlPlane(spec, engine_factory=factory)
+    cp.add_tenant("bench", "sk-bench")
+    cp.add_model(configs.get(PLANE), instances=1, gpus_per_node=1,
+                 est_load_time=60.0)
+    cp.run_until(120.0)
+    check(bool(cp.ready_endpoints(PLANE)), "Table-1 plane did not come up")
+    wl = concurrent_burst(n, seed=0)
+    if mode == "gateway":
+        client = ServingClient(cp, api_key="sk-bench")
+        client.completions(model=PLANE, prompt=[1] * 8, max_tokens=1,
+                           target_output_len=1).result(max_wait=30.0)
+    times["engine"].clear()
+    v0 = cp.loop.now
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        if mode == "gateway":
+            reqs = [client.completions(CompletionRequest.from_engine(
+                r, PLANE, stream=True)).req for r in wl.requests]
+        else:
+            inst = next(iter(cp.registry.values()))
+            reqs = wl.requests
+            for r in reqs:
+                inst.submit(r)
+        cp.loop.run_while(lambda: any(r.status.value not in ("finished",
+                                                             "failed")
+                                      for r in reqs), max_t=v0 + 3600.0)
+        wall = time.perf_counter() - t0
+    engine_s = sum(times["engine"])
+    row = {"traffic": f"Table-1 GPU-L burst, {mode}", "requests": n,
+           "finished": sum(r.status.value == "finished" for r in reqs),
+           "virtual_s": cp.loop.now - v0, "wall_s": wall,
+           "engine_step_s": engine_s, "engine_steps": len(times["engine"]),
+           "plane_host_s": wall - engine_s,
+           "plane_host_s_per_request": (wall - engine_s) / n, **pauses}
+    cp.shutdown()
+    return row
+
+
+def plane_host_launcher():
+    """``python -m repro_torch.launch.serve`` as a user runs it, with its
+    defaults (roofline simulator, one replica the autoscaler may grow to
+    8, bursty_poisson at 4 requests/s for 300 virtual seconds): its wall
+    time less LLMEngine.step, over its requests."""
+    import io
+    from repro_torch.engine.engine import LLMEngine
+    from repro_torch.launch import serve
+    times = {"engine": []}
+    inner = LLMEngine.step
+
+    def step(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = inner(self, *args, **kwargs)
+        times["engine"].append(time.perf_counter() - t)
+        return out
+
+    out = io.StringIO()
+    LLMEngine.step = step
+    try:
+        with gc_pauses() as pauses, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            serve.main([])
+            wall = time.perf_counter() - t0
+    finally:
+        LLMEngine.step = inner
+    text = out.getvalue()
+    fin, n = text.split("finished ")[1].split(";")[0].split("/")
+    engine_s = sum(times["engine"])
+    return {"traffic": "launch.serve defaults: bursty_poisson 4/s, 300 s",
+            "requests": int(n), "finished": int(fin), "wall_s": wall,
+            "engine_step_s": engine_s, "engine_steps": len(times["engine"]),
+            "plane_host_s": wall - engine_s,
+            "plane_host_s_per_request": (wall - engine_s) / int(n),
+            **pauses}
+
+
+def phase_plane_host():
+    """The plane's own host time per request at the concurrencies and
+    virtual spans the paper serves, on the roofline simulator (no card
+    work): Table-1 GPU-L bursts of 100, 500 and 1000, through the gateway
+    and straight into the instance, and the serving launcher's default
+    run."""
+    rows = [plane_host_sim(n, mode) for n in PLANE_HOST_BURSTS
+            for mode in ("gateway", "direct")]
+    rows.append(plane_host_launcher())
+    for row in rows:
+        print("plane-host " + json.dumps(row))
+        check(row["finished"] >= 0.99 * row["requests"],
+              f"plane-host run failed requests: {row}")
 
 
 def audio_generate(cfg, params, prompt, frames, n_steps, attention=None):
@@ -534,14 +929,14 @@ def phase_audio(cfg):
     """Whisper-small at full width through the model API: one clip's seeded
     frames, a prompt, 16 decode steps; flash prefill runs the decoder's
     causal self-attention once a layer. Returns the kernels' launches."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import drive
     from repro_torch.models import api
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                              "cuda")
     frames = torch.randn(1, cfg.encoder_seq_len, cfg.frontend_dim,
                          generator=torch.Generator("cuda").manual_seed(2),
                          device="cuda")
-    prompt = serve.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=0)[0]
+    prompt = drive.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=0)[0]
     print(f"path {cfg.name}: family={cfg.family} layers={cfg.num_layers}+"
           f"{cfg.encoder_layers} d_model={cfg.d_model} {cfg.param_dtype} "
           f"weights {sum(size(t) for t in _leaves(params)) / 1e9:.2f} GB")
@@ -549,17 +944,17 @@ def phase_audio(cfg):
     reset_counts()
     t0 = time.perf_counter()
     toks, cache = audio_generate(cfg, params, prompt, frames,
-                                 serve.NEW_TOKENS)
+                                 drive.NEW_TOKENS)
     wall = time.perf_counter() - t0
     counts = read_counts()
     print(f"path {cfg.name} " + json.dumps(
         {"wall_s": wall, "prompt_len": len(prompt), "decode_steps":
-         serve.NEW_TOKENS, "tokens": toks, "tokens_per_s": len(toks) / wall,
+         drive.NEW_TOKENS, "tokens": toks, "tokens_per_s": len(toks) / wall,
          "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     want = {"paged_attention": 0, "flash_prefill": attention_layers(cfg)}
     check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
-    ctx = len(prompt) + serve.NEW_TOKENS + 1
+    ctx = len(prompt) + drive.NEW_TOKENS + 1
     toks_t = torch.tensor([1], device="cuda")
     pos = torch.tensor([ctx - 1], device="cuda")
     timing = time_step(
@@ -575,7 +970,7 @@ def phase_audio(cfg):
 def phase_audio_oracle(cfg):
     """At 2 layers f32: greedy tokens with the flash-prefill kernel equal
     those with plain attention."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import drive
     from repro_torch.models import api
     from repro_torch.models import common as cm
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(1),
@@ -583,11 +978,11 @@ def phase_audio_oracle(cfg):
     frames = torch.randn(1, cfg.encoder_seq_len, cfg.frontend_dim,
                          generator=torch.Generator("cuda").manual_seed(3),
                          device="cuda")
-    prompt = serve.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=1)[0]
+    prompt = drive.make_prompts(cfg.vocab_size, (AUDIO_PROMPT,), seed=1)[0]
     reset_counts()
-    kernel, _ = audio_generate(cfg, params, prompt, frames, serve.NEW_TOKENS)
+    kernel, _ = audio_generate(cfg, params, prompt, frames, drive.NEW_TOKENS)
     counts = read_counts()
-    plain, _ = audio_generate(cfg, params, prompt, frames, serve.NEW_TOKENS,
+    plain, _ = audio_generate(cfg, params, prompt, frames, drive.NEW_TOKENS,
                               attention=cm.plain_prefill_attention)
     print(f"oracle {cfg.name} " + json.dumps(
         {"layers": cfg.num_layers, "dtype": cfg.param_dtype,
@@ -611,6 +1006,7 @@ def free_the_card():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.kernels import build
@@ -640,11 +1036,19 @@ def main():
         cfg = configs.get(name)
         check(cfg.num_layers == layers, f"{name} is not {layers} layers")
         free_the_card()
-        launches[name] = phase_path(cfg)
+        launches[name], params = phase_path(cfg)
+        if name == PLANE:
+            (launches[f"{name} through the control plane"],
+             launches[f"{name} through the control plane, Table-1 burst of "
+                      f"{PLANE_BURST}"]) = phase_plane(cfg, params)
+        del params
         free_the_card()
-        phase_oracle(dataclasses.replace(
-            cfg, num_layers=ORACLE_LAYERS.get(name, 2),
-            param_dtype="float32"))
+        small = dataclasses.replace(cfg, num_layers=ORACLE_LAYERS.get(name, 2),
+                                    param_dtype="float32")
+        params, prompts, oracle = phase_oracle(small)
+        if name == PLANE:
+            phase_plane_oracle(small, params, prompts, oracle)
+        del params
     cfg = configs.get(AUDIO)
     free_the_card()
     launches[AUDIO] = phase_audio(cfg)
@@ -652,6 +1056,7 @@ def main():
     phase_audio_oracle(dataclasses.replace(cfg, num_layers=2,
                                            encoder_layers=2,
                                            param_dtype="float32"))
+    phase_plane_host()
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"
@@ -671,6 +1076,8 @@ def main():
                 "library_ms": rows[name]["library_ms"],
                 "device_ms": rows[name]["device_ms"]}
                for name, (src, rep) in sources.items()]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Model and hardware configuration for the PyTorch port.
 
-A copy of the serving subset of the JAX package's ``config.py``. One frozen
-dataclass covers every architecture family; family-specific fields default
-to None/0 and are only read by the matching model module.
+A copy of the JAX package's ``config.py`` without the dry-run shapes: the
+model and hardware configurations, and the control plane's SLO targets and
+service knobs. One frozen dataclass covers every architecture family;
+family-specific fields default to None/0 and are only read by the matching
+model module.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 
 @dataclass(frozen=True)
@@ -168,6 +170,118 @@ class ModelConfig:
         if self.num_patches:
             changes.update(num_patches=16, frontend_dim=64)
         return replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class SLOTarget:
+    """Latency targets for one request SLO class: a request *attains* its
+    SLO when both its TTFT and its end-to-end latency land under target.
+    These are the denominators of the benchmark harness's SLO-attainment
+    metric and the per-class weights of the `slo_cost` routing policy."""
+    ttft: float          # seconds to first token
+    e2el: float          # seconds to last token
+
+
+#: request-level SLO classes (latency-target tiers, not priority ints):
+#: `interactive` is a human waiting at a chat box, `standard` the default
+#: API call, `batch` offline bulk work that only cares about completion.
+SLO_CLASSES = ("interactive", "standard", "batch")
+
+DEFAULT_SLO_TARGETS = {
+    "interactive": SLOTarget(ttft=2.0, e2el=60.0),
+    "standard": SLOTarget(ttft=10.0, e2el=300.0),
+    "batch": SLOTarget(ttft=60.0, e2el=1800.0),
+}
+
+#: per-class SLO attainment objectives — the error-budget denominators of
+#: the burn-rate evaluator (repro_torch.core.telemetry): burn = miss_fraction /
+#: (1 - objective).  Batch tolerates a wider budget: it is the class the
+#: gateway sheds first under overload.
+DEFAULT_SLO_OBJECTIVES = {
+    "interactive": 0.99,
+    "standard": 0.99,
+    "batch": 0.95,
+}
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """Control-plane service knobs (paper §3.1–3.3 plus the routing and
+    queuing extensions from the production-stack proposals).
+
+    routing_policy selects the Web Gateway's endpoint-selection strategy
+    (see repro_torch.core.router.POLICIES). queue_capacity > 0 enables bounded
+    router-side request queuing: requests that would be rejected 461 are
+    held up to queue_ttl seconds and drained when an instance comes up.
+    Dequeue is priority-ordered (Request.priority, FIFO within a class);
+    queue_aging is the starvation-avoidance knob — priority points a
+    queued request gains per second of waiting (0 = strict priority).
+    retry_after_cooldown is the Retry-After hint stamped on 461/462 wire
+    errors when queuing is disabled — the autoscaler scale-up cooldown
+    analogue (with queuing enabled the hint is queue_ttl instead).
+    """
+    routing_policy: str = "round_robin"
+    affinity_replicas: int = 64        # virtual nodes per endpoint (ring)
+    prefix_tokens: int = 32            # prefix-aware grouping key length
+    queue_capacity: int = 0            # 0 = disabled (seed behaviour)
+    queue_ttl: float = 30.0            # seconds before a queued req expires
+    queue_drain_interval: float = 1.0  # periodic expiry/drain tick
+    queue_aging: float = 0.0           # priority points per queued second
+    # weighted fair queuing across tenants in the gateway queue (one
+    # bucket per authenticated tenant, service measured in tokens over
+    # TenantSpec.weight); False = single per-model bucket (plain
+    # priority-FIFO, the PR-3 behaviour) — the benchmark baseline
+    fair_queuing: bool = True
+    retry_after_cooldown: float = 60.0  # 461/462 retry hint, queue disabled
+    # gateway auth cache: bound on cached keys (LRU beyond it) and the
+    # short TTL for cached *negative* lookups — an attacker hammering bad
+    # keys must not buy a DB trip per probe nor grow the cache unboundedly
+    auth_cache_max: int = 1024
+    auth_neg_ttl: float = 5.0
+    # admission control: when queuing, reject-early (461 + retry_after)
+    # any request whose roofline-estimated service time already exceeds
+    # the queue TTL it would be held under — it could never be served
+    # within its budget, so fail fast instead of parking a doomed request
+    admission_control: bool = False
+    # default prefill->decode KV handoff link (bytes/s) for disaggregated
+    # models configured outside the declarative spec path
+    kv_transfer_bandwidth: float = 40e9
+    # per-class latency targets: the SLO-attainment denominators and the
+    # slo_cost router's per-request weighting (keys must be SLO_CLASSES)
+    slo_targets: dict = field(
+        default_factory=lambda: dict(DEFAULT_SLO_TARGETS))
+    # distributed request tracing (repro_torch.core.tracing): span trees are
+    # recorded for every request when enabled; trace_sample_rate is the
+    # head-based RETENTION probability (errors and SLO-misses are always
+    # retained), overridable per tenant, and trace_max_retained bounds
+    # the in-memory trace store (oldest evicted first)
+    tracing_enabled: bool = True
+    trace_sample_rate: float = 1.0
+    tenant_trace_sample_rates: dict = field(default_factory=dict)
+    trace_max_retained: int = 1024
+    # SLO burn-rate telemetry (repro_torch.core.telemetry): rollup store +
+    # multi-window multi-burn-rate alert evaluator over per-class SLO
+    # attainment.  Each severity pair is (short_window_s, long_window_s)
+    # + the burn factor both windows must exceed to fire (Google SRE
+    # workbook ch. 5 defaults scaled to the simulation's minutes-long
+    # runs); burn_min_events suppresses alerts on tiny samples.  The
+    # evaluator is fed by the tracer, so it goes dark when
+    # tracing_enabled is off.
+    telemetry_enabled: bool = True
+    slo_objectives: dict = field(
+        default_factory=lambda: dict(DEFAULT_SLO_OBJECTIVES))
+    burn_fast_window: tuple = (30.0, 120.0)
+    burn_fast_factor: float = 14.4
+    burn_slow_window: tuple = (120.0, 600.0)
+    burn_slow_factor: float = 6.0
+    burn_min_events: int = 8
+    # per-class admission shedding while a fast-burn alert fires: the
+    # gateway answers 461 (+ projected-recovery retry_after) for batch
+    # first, escalating one class per shed_escalate_after seconds of
+    # sustained firing; interactive is never shed.  Default OFF — it is
+    # a policy decision, not an observability feature.
+    slo_shed_enabled: bool = False
+    shed_escalate_after: float = 60.0
 
 
 @dataclass(frozen=True)

@@ -1,169 +1,99 @@
-"""Serving entry point of the PyTorch port: one ``LLMEngine`` over
-``RealExecutor`` on the card, fed seeded prompts and stepped until idle.
+"""Serving launcher: bring up the control plane + N instances of --arch and
+drive an open-loop workload (or stay idle with --duration for interactive
+poking from a REPL).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch mistral-small-24b --requests 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-small-24b \
+        --instances 2 --rate 4 --duration 300
 
-Every family but vlm and audio serves this way (those two need inputs that
-requests do not carry; see ``RealExecutor``).
-
-Weights are random, drawn from a seeded ``torch.Generator`` on the device.
-Prints each request's tokens and its wall-clock TTFT and latency.
+The roofline simulator is the default engine. ``--real-compute`` serves the
+reduced config through the port's ``RealExecutor`` on ``--device``: the card
+unless ``--device cpu`` is given, and without a card it raises. Its
+roofline, which sets only the plane's virtual clock, is ``GPU_H100``'s,
+where the JAX package's launcher times its executor on ``TPU_V5E``.
+``launch/drive.py`` drives one engine without the plane.
 """
-from __future__ import annotations
-
 import argparse
-import json
-import time
-
-import numpy as np
-import torch
-
-from repro_torch import configs
-from repro_torch.config import GPU_H100
-from repro_torch.engine.engine import LLMEngine
-from repro_torch.engine.executor import RealExecutor
-from repro_torch.engine.request import Request, SamplingParams
-from repro_torch.kernels import build
-from repro_torch.models import api
-
-PROMPT_LENS = (37, 300, 1000, 1500)   # cycled over the requests
-# mamba2 prefills a whole prompt with the chunked SSD scan, which takes a
-# length below its chunk (256 at full width) or a multiple of it, as the
-# reference's does
-SSM_PROMPT_LENS = (37, 256, 1024, 1536)
-NEW_TOKENS = 16                       # greedy tokens per request
-STATE_FAMILIES = ("ssm", "hybrid")    # served from slot-state caches
+import sys
 
 
-def prompt_lens(cfg):
-    return SSM_PROMPT_LENS if cfg.family == "ssm" else PROMPT_LENS
-
-
-def build_engine(cfg, params, device="cuda", num_blocks: int = 1024,
-                 block_size: int = 16, max_num_seqs: int = 8,
-                 max_prefill_tokens: int = 512, max_model_len: int = 4096):
-    """RealExecutor + LLMEngine for ``cfg`` on ``device`` (roofline timing
-    against the H100). The state families keep one cache slot per sequence
-    and serve without prefix caching, as the reference's engine test of the
-    state executor does."""
-    ex = RealExecutor(cfg, params, num_blocks=num_blocks,
-                      block_size=block_size, hw=GPU_H100,
-                      max_model_len=max_model_len, max_slots=max_num_seqs,
-                      device=device)
-    return LLMEngine(cfg, ex, num_blocks=num_blocks, block_size=block_size,
-                     max_num_seqs=max_num_seqs,
-                     max_prefill_tokens=max_prefill_tokens,
-                     max_model_len=max_model_len,
-                     enable_prefix_caching=cfg.family not in STATE_FAMILIES)
-
-
-def make_prompts(vocab_size: int, lengths, seed: int):
-    rng = np.random.default_rng(seed)
-    return [[int(t) for t in rng.integers(1, vocab_size, size=n)]
-            for n in lengths]
-
-
-def serve(engine: LLMEngine, prompts, max_new_tokens: int):
-    """Submit greedy requests at once and step until idle. Returns the
-    requests and, per request, its wall-clock TTFT and latency (seconds)."""
-    reqs = [Request(prompt_tokens=list(p),
-                    sampling=SamplingParams(temperature=0.0,
-                                            max_new_tokens=max_new_tokens))
-            for p in prompts]
-    t0 = time.perf_counter()
-    for r in reqs:
-        engine.add_request(r, 0.0)
-    ttft, latency = {}, {}
-    now = 0.0
-    while engine.has_work():
-        rep = engine.step(now)
-        now += max(rep.elapsed, 1e-4)
-        wall = time.perf_counter() - t0  # logits reached the host: synced
-        for r in reqs:
-            if r.output_tokens and r.request_id not in ttft:
-                ttft[r.request_id] = wall
-            if r.status.value in ("finished", "failed") \
-                    and r.request_id not in latency:
-                latency[r.request_id] = wall
-    timing = [{"ttft_s": ttft.get(r.request_id),
-               "latency_s": latency.get(r.request_id)} for r in reqs]
-    return reqs, timing
+def engine_factory(params, device="cuda", num_blocks=512, block_size=16,
+                   max_num_seqs=8, max_prefill_tokens=256,
+                   max_model_len=512):
+    """The control plane's ``engine_factory(cfg, tp)`` for real compute:
+    ``drive.build_engine`` on ``params`` (a tree on ``device``), with the
+    reference launcher's engine sizes by default. Every engine it builds
+    shares the one tree."""
+    from repro_torch.launch import drive
+    return lambda c, tp: drive.build_engine(
+        c, params, device, num_blocks=num_blocks, block_size=block_size,
+        max_num_seqs=max_num_seqs, max_prefill_tokens=max_prefill_tokens,
+        max_model_len=max_model_len)
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mistral-small-24b",
-                    choices=sorted(configs.CONFIGS))
-    ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the run with torch.profiler and print the "
-                         "device time by kernel")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mistral-small-24b")
+    ap.add_argument("--instances", type=int, default=1)
+    ap.add_argument("--rate", type=float, default=4.0)
+    ap.add_argument("--duration", type=float, default=300.0)
+    ap.add_argument("--hardware", default="h100-sxm",
+                    choices=["h100-sxm", "l40s", "tpu-v5e"])
+    ap.add_argument("--real-compute", action="store_true",
+                    help="reduced config + RealExecutor instead of the "
+                         "roofline simulator")
+    ap.add_argument("--device", default="cuda",
+                    help="where --real-compute runs (cpu only when asked)")
     args = ap.parse_args(argv)
 
+    from repro_torch import configs
+    from repro_torch.api import AdminClient, CompletionRequest, ServingClient
+    from repro_torch.config import HARDWARE
+    from repro_torch.core.controller import ClusterSpec, ControlPlane
+    from repro_torch.data.burstgpt import bursty_poisson
+
+    hw = HARDWARE[args.hardware]
     cfg = configs.get(args.arch)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device (pass --device cpu for the CPU)")
-    gen = torch.Generator(device).manual_seed(args.seed)
-    params = api.init_params(cfg, gen, device)
-    engine = build_engine(cfg, params, device)
-    cycle = prompt_lens(cfg)
-    lens = [cycle[i % len(cycle)] for i in range(args.requests)]
-    prompts = make_prompts(cfg.vocab_size, lens, args.seed)
-    if device.type == "cuda":
-        build.build_all()  # compile before the clock starts, not in TTFT
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            reqs, timing = serve(engine, prompts, NEW_TOKENS)
-            wall = time.perf_counter() - t0
-    else:
-        t0 = time.perf_counter()
-        reqs, timing = serve(engine, prompts, NEW_TOKENS)
-        wall = time.perf_counter() - t0
-    for r, t in zip(reqs, timing):
-        print(json.dumps({"request": r.request_id, "prompt_len": r.prompt_len,
-                          "status": r.status.value, **t,
-                          "tokens": r.output_tokens}))
-    n = sum(len(r.output_tokens) for r in reqs)
-    print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
-                      "device": str(device), "wall_s": wall,
-                      "output_tokens": n, "tokens_per_s": n / wall}))
-    if args.profile:
-        print(json.dumps(device_time_by_kernel(prof, wall)))
+    factory = None
+    if args.real_compute:
+        import torch
+        from repro_torch.device import require
+        from repro_torch.models import api
+        cfg = cfg.reduced()
+        device = require(args.device)
+        params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                                 device)
+        factory = engine_factory(params, device)
 
+    cp = ControlPlane(ClusterSpec(num_nodes=8, gpus_per_node=2,
+                                  hardware=hw),
+                      engine_factory=factory)
+    cp.add_tenant("serve", "sk-serve")
+    cp.register_model(cfg)
+    admin = AdminClient(cp)
+    admin.apply_tenant(name="serve", weight=1.0, max_inflight=4096)
+    dep = admin.apply(model=cfg.name, replicas=args.instances,
+                      max_replicas=max(8, args.instances),
+                      est_load_time=45.0)
+    admin.wait(cfg.name, "Ready", timeout=120.0)
+    cp.run_until(max(cp.loop.now, 120.0))
+    print(f"ready endpoints: {[(e['node'], e['port']) for e in cp.ready_endpoints(cfg.name)]}")
+    print(f"deployment status: {dep.status.to_dict()}")
 
-# substrings of the names of the port's own kernels (csrc/*.cu), listed
-# whatever their rank
-PORT_KERNELS = ("flash_prefill", "paged_split", "paged_combine")
+    t0 = cp.loop.now
+    client = ServingClient(cp, api_key="sk-serve", default_model=cfg.name)
+    streams, submit = client.submitter()
 
-
-def device_time_by_kernel(prof, wall_s: float, top: int = 12):
-    """Device time per kernel name from a torch.profiler trace: the top
-    ``top`` of them and every kernel of the port's own, and the sum of all
-    as a share of the serving window (the profiler's own overhead
-    included)."""
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops; their kernels are listed themselves
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, evt.count, evt.key))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    return {"device_busy_s": busy_s, "wall_s": wall_s,
-            "device_busy_share": busy_s / wall_s,
-            "kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
-                        for i, (us, c, k) in enumerate(rows)
-                        if i < top or any(n in k for n in PORT_KERNELS)]}
+    wl = bursty_poisson(args.rate, args.duration, seed=0,
+                        vocab=min(cfg.vocab_size, 32000))
+    for req, at in zip(wl.requests, wl.arrivals):
+        wire = CompletionRequest.from_engine(req, cfg.name, stream=True)
+        cp.loop.call_at(t0 + at, lambda w=wire: submit(w))
+    cp.run_until(t0 + args.duration + 120.0)
+    fin = sum(1 for s in streams if s.ok)
+    print(f"finished {fin}/{len(wl.requests)}; gateway stats: "
+          f"{cp.web_gateway.stats}")
+    print(f"scale events: {cp.metrics_gateway.scale_events}")
+    print(f"tenant usage: {admin.tenant_usage('serve').to_dict()}")
 
 
 if __name__ == "__main__":

@@ -178,15 +178,15 @@ def test_sim_executor_matches_jax_timing():
 
 
 def test_serve_entry_point_on_cpu(dense_setup, rng):
-    """launch/serve.py's engine and request loop, asked for the CPU, serve
+    """launch/drive.py's engine and request loop, asked for the CPU, serve
     greedy requests to the JAX oracle's tokens and time each request."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import drive
     jcfg, jp, tcfg, tp = dense_setup
-    eng = serve.build_engine(tcfg, tp, "cpu", num_blocks=64, block_size=16,
+    eng = drive.build_engine(tcfg, tp, "cpu", num_blocks=64, block_size=16,
                              max_num_seqs=4, max_prefill_tokens=32,
                              max_model_len=256)
-    prompts = serve.make_prompts(tcfg.vocab_size, (9, 40), seed=3)
-    reqs, timing = serve.serve(eng, prompts, 4)
+    prompts = drive.make_prompts(tcfg.vocab_size, (9, 40), seed=3)
+    reqs, timing = drive.serve(eng, prompts, 4)
     for r, p, t in zip(reqs, prompts, timing):
         assert r.output_tokens == oracle_generate(jcfg, jp, p, 4)
         assert 0 < t["ttft_s"] <= t["latency_s"]

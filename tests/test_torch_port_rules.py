@@ -88,10 +88,14 @@ def test_port_config_equals_jax_config(name):
 
 
 def test_serve_entry_point_does_not_fall_back_to_cpu(monkeypatch):
-    from repro_torch.launch import serve
+    """Neither the direct engine driver nor the control-plane launcher's
+    real compute lands on the CPU unless asked."""
+    from repro_torch.launch import drive, serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
-        serve.main(["--arch", "smollm-135m"])
+        drive.main(["--arch", "smollm-135m"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "smollm-135m", "--real-compute"])
 
 
 @pytest.mark.parametrize("op", ["paged", "flash"])
