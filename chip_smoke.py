@@ -52,13 +52,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      API: prefill_fn on seeded 1500 x 80 frames (flash prefill launched 12
      times) and 16 decode steps, timed as above; then at 2 layers f32 its
      greedy tokens with the kernel equal those with plain attention;
-  6. the control plane's own host time per request with the roofline
+  6. training: SmolLM-135M at full width and depth (30 layers, bf16
+     weights from a seeded torch.Generator) through the port's Trainer on
+     TokenPipeline data at vocab 49 152, seq_len 2048, global batch 8: 20
+     steps with a checkpoint at step 10; a second Trainer on that directory
+     resumes at step 10 and must repeat the uninterrupted run's losses to
+     rel 1e-5; the loss must fall from its first step (near ln 49 152).
+     Neither kernel may launch (they have no backward; attention trains
+     through the plain chunked_causal_mha). Prints the median step's wall
+     time and tokens/s, one step's device time from torch.profiler with the
+     device's busy share and its five costliest kernels and ops, the step's
+     operation bound (6 x params x tokens plus causal attention's forward
+     and backward, at the bf16 peak) and the step's share of it, and the
+     peak memory. Then, per family (dense, moe, ssm, hybrid at its 3-layer
+     reduced shape, audio, vlm), the reduced config at 2 layers in f32: one
+     train step on the card gives the CPU's loss and grad_norm to rel 1e-4;
+  7. the control plane's own host time per request with the roofline
      simulator as engine (no card work): Table-1 GPU-L bursts of 100, 500
      and 1000, through the Web Gateway and straight into the instance, and
      `python -m repro_torch.launch.serve` with its defaults;
-  7. one JSON line of per-kernel numbers, all measured in this run but the
+  8. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
+TF32 is off throughout.
 """
 from __future__ import annotations
 
@@ -69,8 +85,11 @@ import gc
 import itertools
 import json
 import statistics
+import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +114,26 @@ AUDIO_MAX_PROMPT = 448                     # the decoder's longest prompt
 PLANE = "mistral-small-24b"                # served through the control plane
 PLANE_BURST = 100                          # Table-1's smallest concurrency
 PLANE_HOST_BURSTS = (100, 500, 1000)       # Table-1's concurrencies
+TRAIN = "smollm-135m"                      # trained at full width and depth
+TRAIN_SEQ, TRAIN_BATCH = 2048, 8           # its pretraining context
+TRAIN_STEPS, TRAIN_CKPT = 20, 10           # the resumed run starts at 10
+TRAIN_RESUME_RTOL = 1e-5                   # resumed against uninterrupted
+# (arch, batch, seq_len) of the reduced f32 configs at 2 layers (the
+# hybrid's 3): hybrid past its window of 64, ssm on whole SSD chunks, vlm
+# past its 16 patches
+TRAIN_FAMILIES = {"dense": ("smollm-135m", 2, 48),
+                  "moe": ("qwen3-moe-30b-a3b", 2, 48),
+                  "ssm": ("mamba2-780m", 2, 64),
+                  "hybrid": ("recurrentgemma-9b", 2, 96),
+                  "audio": ("whisper-small", 2, 48),
+                  "vlm": ("pixtral-12b", 2, 48)}
+TRAIN_FAMILY_RTOL = 1e-4                   # card against CPU, TF32 off
+# a kernel's kind, by the first pattern its name matches (any case)
+KERNEL_KINDS = {"products": r"gemm|nvjet|xmma|cutlass|s16816|s1688",
+                "softmax": r"softmax",
+                "elementwise, copies, reductions":
+                    r"elementwise|copy|reduce|fill|cat|index|gather|"
+                    r"scatter|embedding|where"}
 
 
 def check(cond, msg):
@@ -382,22 +421,24 @@ def phase_path(cfg):
     return counts, params
 
 
-def time_step(step):
+def time_step(step, iters=5, n=3, kinds=None):
     """`ms` (CUDA events around a call: the host's launches included),
-    `device_ms` (the kernels' device time from torch.profiler), and the
-    step's five costliest kernels and five costliest PyTorch ops by the
-    device time of the kernels each launched itself (ms and calls a
-    step)."""
+    `device_ms` (the kernels' device time from torch.profiler over n
+    calls), and the step's five costliest kernels and five costliest
+    PyTorch ops by the device time of the kernels each launched itself (ms
+    and calls a step). With ``kinds`` ({kind: kernel-name pattern}), also
+    the device time a step by the first kind whose pattern a kernel's name
+    matches in any case ("other" for none), as a fifth item, and the five
+    costliest kernels of "other" as a sixth."""
     from repro_torch.launch import drive
-    ms = cuda_ms(step, iters=5, warmup=1)
+    ms = cuda_ms(step, iters=iters, warmup=1)
     from torch.profiler import ProfilerActivity, profile
-    n = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    by_kernel = drive.device_time_by_kernel(prof, 1.0, top=5)
+    by_kernel = drive.device_time_by_kernel(prof, 1.0, top=10 ** 6)
     kernels = [{"name": k["name"], "calls": k["calls"] / n,
                 "device_ms": k["device_ms"] / n}
                for k in by_kernel["kernels"][:5]]
@@ -408,7 +449,18 @@ def time_step(step):
                  reverse=True)[:5]
     ops = [{"name": k, "calls": c / n, "device_ms": us / 1e3 / n}
            for us, c, k in ops if us > 0]
-    return ms, by_kernel["device_busy_s"] * 1e3 / n, kernels, ops
+    out = (ms, by_kernel["device_busy_s"] * 1e3 / n, kernels, ops)
+    if kinds is None:
+        return out
+    split = dict.fromkeys([*kinds, "other"], 0.0)
+    other = []
+    for k in by_kernel["kernels"]:
+        kind = next((kd for kd, pat in kinds.items()
+                     if re.search(pat, k["name"], re.I)), "other")
+        split[kind] += k["device_ms"] / n
+        if kind == "other" and len(other) < 5:
+            other.append({"name": k["name"], "device_ms": k["device_ms"] / n})
+    return out + (split, other)
 
 
 def weight_bytes(params, s):
@@ -993,6 +1045,147 @@ def phase_audio_oracle(cfg):
           f"{cfg.name}: launches {counts}")
 
 
+# --------------------------------------------------------------------------
+# phase 6: training
+# --------------------------------------------------------------------------
+
+def train_bound(cfg, n_params):
+    """The least time of one train step: 6 x params x tokens (forward and
+    backward of every product, the tied head included) plus causal
+    attention's products (QK^T and PV over the lower triangle, forward and
+    twice that backward), at the bf16 peak."""
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    attn = 6 * TRAIN_BATCH * cfg.num_heads * TRAIN_SEQ ** 2 * cfg.head_dim \
+        * cfg.num_layers
+    ops = 6 * n_params * tokens + attn
+    return ops, ops / PEAK_OPS[torch.bfloat16] * 1e3
+
+
+def phase_train(cfg):
+    """SmolLM-135M trained at full width and depth through the Trainer;
+    resumed from its step-10 checkpoint by a second Trainer. Returns the
+    kernels' launches over the phase."""
+    from repro_torch.models import api
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"train {cfg.name}: family={cfg.family} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} vocab={cfg.vocab_size} {cfg.param_dtype} "
+          f"params {n_params / 1e6:.1f} M, seq_len {TRAIN_SEQ} x batch "
+          f"{TRAIN_BATCH}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        tcfg = TrainerConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                             steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+                             ckpt_dir=d, log_every=5)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a = Trainer(cfg, tcfg, params=params, device="cuda")
+        del params
+        a.run(steps=TRAIN_CKPT)                # checkpoint at step 10
+        peak = torch.cuda.max_memory_allocated()
+        b = Trainer(cfg, dataclasses.replace(tcfg, ckpt_every=10 ** 9),
+                    device="cuda")
+        check(b.step_idx == TRAIN_CKPT,
+              f"train: resumed at step {b.step_idx}, want {TRAIN_CKPT}")
+        a.run()                                # uninterrupted to step 20
+        b.run()                                # resumed to step 20
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ckpts = sorted(p.name for p in Path(d).glob("step_*"))
+    losses = [h["loss"] for h in a.history]
+    resumed = [h["loss"] for h in b.history]
+    del b
+    rel = max(abs(x - y) / abs(y) for x, y in
+              zip(resumed, losses[TRAIN_CKPT:]))
+    step_s = statistics.median(h["wall_s"] for h in a.history[1:])
+    print(f"train {cfg.name} " + json.dumps(
+        {"steps": len(a.history), "losses": losses,
+         "grad_norms": [h["grad_norm"] for h in a.history],
+         "lrs": [h["lr"] for h in a.history],
+         "resumed_at": TRAIN_CKPT, "resumed_losses": resumed,
+         "resume_max_rel_diff": rel, "checkpoints": ckpts,
+         "median_step_s": step_s,
+         "tokens_per_s": TRAIN_SEQ * TRAIN_BATCH / step_s,
+         "first_step_s": a.history[0]["wall_s"], "phase_wall_s": wall,
+         "peak_mem_gb": peak / 1e9, "launches": counts}))
+    check(all(math.isfinite(x) for x in losses + resumed),
+          "train: a loss is not finite")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 0.1 * math.log(
+        cfg.vocab_size), f"train: first loss {losses[0]} is not near "
+                         f"ln {cfg.vocab_size}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    check(len(resumed) == TRAIN_STEPS - TRAIN_CKPT and rel <= TRAIN_RESUME_RTOL,
+          f"train: resumed run differs from the uninterrupted one by rel "
+          f"{rel}")
+    check(counts == {"paged_attention": 0, "flash_prefill": 0},
+          f"train: kernel launches {counts} on the training path")
+
+    # one step, timed and traced, on the state the run left
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in a.pipeline.batch(TRAIN_STEPS).items()}
+    torch.cuda.reset_peak_memory_stats()
+    ms, device_ms, kernels, ops, split, other = time_step(
+        lambda: a._step(a.state, batch), iters=2, n=1, kinds=KERNEL_KINDS)
+    n_ops, bound_ms = train_bound(cfg, n_params)
+    print(f"train {cfg.name} step " + json.dumps(
+        {"ms": ms, "device_ms": device_ms,
+         "device_busy_share": device_ms / ms, "bound_ms": bound_ms,
+         "bound_by": "operations", "model_tflop": n_ops / 1e12,
+         "share_of_bound": bound_ms / ms,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "device_ms_by_kind": split, "top_other_kernels": other,
+         "top_kernels": kernels, "top_ops": ops}))
+    return counts
+
+
+def phase_train_families():
+    """Per family, the reduced config at 2 layers (the hybrid's 3) in f32:
+    one train step on the card and the same on the CPU, from the same
+    weights and batch, give the same loss and grad_norm."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    opt = AdamW(cosine_schedule(1e-3, 1, 10))
+    rows = {}
+    reset_counts()
+    for family, (name, b, t) in TRAIN_FAMILIES.items():
+        cfg = configs.get(name).reduced()
+        params = api.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+        g = torch.Generator().manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t),
+                                         generator=g),
+                 "labels": torch.randint(0, cfg.vocab_size, (b, t),
+                                         generator=g)}
+        if family == "audio":
+            batch["frames"] = torch.randn(b, cfg.encoder_seq_len,
+                                          cfg.frontend_dim, generator=g)
+        if family == "vlm":
+            batch["patch_embeds"] = torch.randn(b, cfg.num_patches,
+                                                cfg.frontend_dim, generator=g)
+        out = {}
+        for device in ("cpu", "cuda"):
+            state = tstep.init_train_state(cfg, opt, device=device,
+                                           params=params)
+            _, metrics = tstep.make_train_step(cfg, opt)(
+                state, {k: v.to(device) for k, v in batch.items()})
+            out[device] = {k: float(v) for k, v in metrics.items()}
+        rel = {k: abs(out["cuda"][k] - out["cpu"][k])
+               / max(abs(out["cpu"][k]), 1e-30)
+               for k in ("loss", "grad_norm")}
+        rows[family] = {"arch": name, "layers": cfg.num_layers,
+                        "seq_len": t, "cuda": out["cuda"], "cpu": out["cpu"],
+                        "rel": rel}
+        check(max(rel.values()) <= TRAIN_FAMILY_RTOL,
+              f"train {family}: card and CPU differ: {rows[family]}")
+    counts = read_counts()
+    print("train-families " + json.dumps(rows))
+    check(counts == {"paged_attention": 0, "flash_prefill": 0},
+          f"train families: kernel launches {counts}")
+
+
 def free_the_card():
     """Drop every tensor a finished phase left behind; the next path's
     weights need the card to themselves."""
@@ -1056,6 +1249,12 @@ def main():
     phase_audio_oracle(dataclasses.replace(cfg, num_layers=2,
                                            encoder_layers=2,
                                            param_dtype="float32"))
+    free_the_card()
+    t0 = time.perf_counter()
+    launches[f"{TRAIN} training"] = phase_train(configs.get(TRAIN))
+    free_the_card()
+    phase_train_families()
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
     phase_plane_host()
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

@@ -1,1 +1,2 @@
-"""Workload synthesis for the control plane (BurstGPT-like traces)."""
+"""Workload synthesis for the control plane (BurstGPT-like traces) and the
+synthetic token data of training."""

@@ -1,8 +1,9 @@
-"""Model API of the PyTorch port: the serving entry points of
+"""Model API of the PyTorch port: the entry points of
 ``repro/models/api.py`` for every family (dense, vlm, moe, ssm, hybrid,
 audio).
 
   init_params(cfg, generator, device)         -> params
+  loss_fn(params, cfg, batch)                 -> (loss, metrics)   [train]
   prefill_fn(params, cfg, batch)              -> (logits, cache)
   decode_fn(params, cfg, tokens, cache, pos)  -> (logits, cache)
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import require as require_device
+from repro_torch.models import common as cm
 from repro_torch.models import griffin, mamba2, moe, transformer, whisper
 
 _MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
@@ -35,6 +37,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         generator = torch.Generator(device).manual_seed(0)
     return module_for(cfg).init(cfg, generator, device)
 
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def loss_fn(params, cfg: ModelConfig, batch, remat: bool = True):
+    """batch: tokens, labels, loss_mask?, frames?, patch_embeds?. Returns
+    (loss + aux, {"loss", "aux_loss"}); a vlm's patch positions carry no
+    next-token target unless the batch gives its own mask."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.family == "moe":
+        logits, aux = moe.forward_train(params, cfg, tokens, remat)
+    elif cfg.family == "audio":
+        logits = whisper.forward_train(params, cfg, tokens, batch["frames"],
+                                       remat)
+    elif cfg.family == "vlm":
+        logits = transformer.forward_train(
+            params, cfg, tokens, patch_embeds=batch["patch_embeds"],
+            remat=remat)
+    else:
+        logits = module_for(cfg).forward_train(params, cfg, tokens,
+                                               remat=remat)
+    mask = batch.get("loss_mask")
+    if cfg.family == "vlm" and mask is None:
+        t = tokens.shape[1]
+        mask = (torch.arange(t, device=tokens.device)[None, :]
+                >= cfg.num_patches).float().expand(tokens.shape)
+    loss = cm.cross_entropy(logits, labels, mask)
+    return loss + aux, {"loss": loss, "aux_loss": aux}
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
 
 def prefill_fn(params, cfg: ModelConfig, batch, attention=None):
     """batch: {"tokens": (B, T)}, and "patch_embeds" for a vlm, "frames" for

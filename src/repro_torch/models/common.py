@@ -1,9 +1,11 @@
-"""Shared PyTorch building blocks of the model zoo: the serving subset of
-the JAX package's ``models/common.py``.
+"""Shared PyTorch building blocks of the model zoo: the counterpart of the
+JAX package's ``models/common.py`` for serving and training.
 
 Parameters are nested dicts of tensors with the JAX tree's keys and layouts
 (``wq``: (d, H, D), ``wo``: (H, D, d), stacked layers on a leading axis), so
-weights carry over unchanged through ``repro_torch.params``.
+weights carry over unchanged through ``repro_torch.params``. The reference's
+sharding helpers (``Param``, ``Initializer``, ``act_shard`` and the
+activation rules) have no counterpart: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -11,11 +13,41 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 
 NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Layer stack (the counterpart of ``lax.scan`` over stacked layers)
+# --------------------------------------------------------------------------
+
+def unstack(tree):
+    """A stacked layer tree -> one tree per layer. Each leaf is unbound
+    once along its leading axis, so its gradient is one stack of the
+    layers' gradients rather than a sum of full-size scatters."""
+    per_leaf = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def layer_scan(body, x, layers, remat: bool = False):
+    """``body(x, lp) -> (x, y)`` over each layer ``lp`` of the stacked tree
+    ``layers``, in order. Returns (x, [y per layer]). With ``remat`` each
+    layer's activations are recomputed in the backward pass
+    (``jax.checkpoint`` of the scanned body in the reference)."""
+    ys = []
+    for lp in unstack(layers):
+        if remat:
+            x, y = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, y = body(x, lp)
+        ys.append(y)
+    return x, ys
 
 
 # --------------------------------------------------------------------------
@@ -140,12 +172,17 @@ def chunked_causal_mha(q, k, v, q_per_kv: int, window: int = 0,
                        bq: int = ATTN_CHUNK_Q):
     """Exact causal attention in plain PyTorch: a loop over query chunks, each
     attending only to its causal (and window-limited) key prefix. The plain
-    counterpart of the flash-prefill kernel, as in the JAX package."""
+    counterpart of the flash-prefill kernel, as in the JAX package. Under
+    autograd each chunk's logits are recomputed in the backward pass, so
+    only one chunk's (bq, kv) buffer is ever live."""
     b, t, h, d = q.shape
     if t <= ATTN_CHUNK_T:
         return mha(q, k, v, causal_mask(t, window, q.device), q_per_kv)
     if t % bq:
         raise ValueError(f"T={t} must be a multiple of the chunk {bq}")
+    attend = mha
+    if torch.is_grad_enabled() and q.requires_grad:
+        attend = functools.partial(checkpoint, mha, use_reentrant=False)
     outs = []
     for i in range(t // bq):
         q_i = q[:, i * bq:(i + 1) * bq]
@@ -158,8 +195,8 @@ def chunked_causal_mha(q, k, v, q_per_kv: int, window: int = 0,
         m = jj <= ii
         if window:
             m &= jj > ii - window
-        outs.append(mha(q_i, k[:, k_start:k_end], v[:, k_start:k_end],
-                        m[None, None], q_per_kv))
+        outs.append(attend(q_i, k[:, k_start:k_end], v[:, k_start:k_end],
+                           m[None, None], q_per_kv))
     return torch.cat(outs, dim=1)
 
 
@@ -167,6 +204,22 @@ def plain_prefill_attention(q, k, v, window: int = 0):
     """``chunked_causal_mha`` with the flash-prefill op's signature: the plain
     attention a caller may pass to ``attention_prefill``."""
     return chunked_causal_mha(q, k, v, q.shape[2] // k.shape[2], window)
+
+
+def attention_train(p, cfg: ModelConfig, x, window: int = 0,
+                    positions=None):
+    """Full-sequence causal (optionally windowed) attention for training:
+    K/V repeated to the query heads once, then the plain
+    ``chunked_causal_mha``. Neither hand-written kernel runs here: they
+    have no backward."""
+    b, t, _ = x.shape
+    if positions is None:
+        positions = torch.arange(t, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    k = repeat_kv(k, cfg.q_per_kv)
+    v = repeat_kv(v, cfg.q_per_kv)
+    out = chunked_causal_mha(q, k, v, 1, window)
+    return _out_proj(out, p["wo"])
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
@@ -238,7 +291,10 @@ def mlp(p, x):
 # --------------------------------------------------------------------------
 
 def embed(p, tokens):
-    return p["tok"][tokens]
+    """Rows of the token table. ``F.embedding``'s backward sums repeated
+    tokens' gradients in a fixed order (indexing's does not on the CPU), so
+    a training step gives the same numbers on every run."""
+    return F.embedding(tokens, p["tok"])
 
 
 def unembed(p, x):
@@ -246,3 +302,16 @@ def unembed(p, x):
     if w is None:
         w = p["tok"].T
     return x @ w
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Mean next-token cross entropy in f32 with a z-loss on the log
+    normaliser; with ``mask``, the mean over the masked-in positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll + z_loss * torch.square(lse)
+    if mask is not None:
+        loss = loss * mask
+        return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(loss)

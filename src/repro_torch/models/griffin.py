@@ -1,4 +1,4 @@
-"""Griffin / RecurrentGemma hybrid in PyTorch: the serving counterpart of
+"""Griffin / RecurrentGemma hybrid in PyTorch: the counterpart of
 ``repro/models/griffin.py``. RG-LRU recurrent blocks and local MQA attention
 in the pattern (rec, rec, attn), kept as the JAX tree keeps them: ``groups``
 of the three, stacked, plus a ``tail`` of rec layers (recurrentgemma-9b's 38
@@ -175,6 +175,18 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
+def _rec_block_train(p, cfg: ModelConfig, x):
+    return _rec_block_prefill(p, cfg, x)[0]
+
+
+def _attn_block_train(p, cfg: ModelConfig, x, positions):
+    h = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + cm.attention_train(p["attn"], cfg, h, window=cfg.attn_window,
+                               positions=positions)
+    h = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + cm.mlp(p["mlp"], h)
+
+
 def _rec_block_prefill(p, cfg: ModelConfig, x):
     """Returns (out, final h_state (B, W) f32, conv_state (B, k-1, W))."""
     h = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -202,8 +214,28 @@ def _rec_block_step(p, cfg: ModelConfig, x, h_state, conv):
 
 
 # --------------------------------------------------------------------------
-# serving
+# forward (training) / serving
 # --------------------------------------------------------------------------
+
+def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True):
+    """tokens: (B, T) -> logits (B, T, V). The groups are recomputed in the
+    backward pass under ``remat``; the tail layers are not, as in the
+    reference."""
+    x = cm.embed(params["embedding"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(x, gp):
+        x = _rec_block_train(gp["rec1"], cfg, x)
+        x = _rec_block_train(gp["rec2"], cfg, x)
+        return _attn_block_train(gp["attn"], cfg, x, positions), None
+
+    x, _ = cm.layer_scan(body, x, params["groups"], remat)
+    if "tail" in params:
+        x, _ = cm.layer_scan(lambda x, lp: (_rec_block_train(lp, cfg, x),
+                                            None), x, params["tail"])
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cm.unembed(params["embedding"], x)
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):

@@ -1,7 +1,7 @@
 """Mamba-2 (SSD, state-space duality) decoder stack in PyTorch, attention
-free: the serving counterpart of ``repro/models/mamba2.py``.
+free: the counterpart of ``repro/models/mamba2.py``.
 
-Prefill runs the chunked SSD algorithm (intra-chunk products plus a
+Training and prefill run the chunked SSD algorithm (intra-chunk products plus a
 recurrence over chunk states); decode carries a fixed (B, H, P, S) state and
 the causal conv's last inputs per layer. Both scans are plain PyTorch, as
 they were plain jnp outside any Pallas kernel in the reference. Decode
@@ -156,9 +156,9 @@ def _gated_out(lp, cfg, x, y, xs, z):
     return x + y @ lp["out_proj"]
 
 
-def _layer_prefill(lp, cfg: ModelConfig, x):
-    """x (B, T, d) -> (out, ssm_state (B, H, P, S) f32, conv_state
-    (B, k-1, conv_dim): the conv's last raw inputs)."""
+def _layer_train(lp, cfg: ModelConfig, x, want_state: bool = False):
+    """x (B, T, d) -> out; with ``want_state`` (out, ssm_state (B, H, P, S)
+    f32, conv_state (B, k-1, conv_dim): the conv's last raw inputs)."""
     b, t, d = x.shape
     d_in, nheads, g, s = _dims(cfg)
     h = cm.rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -171,7 +171,9 @@ def _layer_prefill(lp, cfg: ModelConfig, x):
     y, state = ssd_chunked(xs, dt, A, B.reshape(b, t, g, s),
                            C.reshape(b, t, g, s), cfg.ssm_chunk)
     out = _gated_out(lp, cfg, x, y, xs, z)
-    return out, state, griffin.conv_state(xBC_raw, cfg.conv_kernel)
+    if want_state:
+        return out, state, griffin.conv_state(xBC_raw, cfg.conv_kernel)
+    return out
 
 
 def _layer_step(lp, cfg: ModelConfig, x, ssm_state, conv_state):
@@ -192,8 +194,21 @@ def _layer_step(lp, cfg: ModelConfig, x, ssm_state, conv_state):
 
 
 # --------------------------------------------------------------------------
-# serving
+# forward (training) / serving
 # --------------------------------------------------------------------------
+
+def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True):
+    """tokens: (B, T), T below the SSD chunk or a multiple of it -> logits
+    (B, T, V)."""
+    x = cm.embed(params["embedding"], tokens)
+
+    def body(x, lp):
+        return _layer_train(lp, cfg, x), None
+
+    x, _ = cm.layer_scan(body, x, params["layers"], remat)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cm.unembed(params["embedding"], x)
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
@@ -216,7 +231,8 @@ def prefill(params, cfg: ModelConfig, tokens):
     x = cm.embed(params["embedding"], tokens)
     ssm, conv = [], []
     for i in range(cfg.num_layers):
-        x, st, cst = _layer_prefill(tfm.layer(params["layers"], i), cfg, x)
+        x, st, cst = _layer_train(tfm.layer(params["layers"], i), cfg, x,
+                                  want_state=True)
         ssm.append(st)
         conv.append(cst)
     x = cm.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)

@@ -1,5 +1,5 @@
 """Mixture-of-Experts decoder transformer (qwen3-moe, kimi-k2) in PyTorch:
-the serving counterpart of ``repro/models/moe.py``.
+the counterpart of ``repro/models/moe.py``.
 
 Routing is the reference's sort-based capacity dispatch: each token's top-k
 entries are sorted by expert id, placed into an (E, C, d) buffer, and every
@@ -118,7 +118,9 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     slot = torch.where(keep, se * cap + pos, e * cap)         # overflow row
 
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xf[stok]           # only dropped entries share a row: the last
+    # only dropped entries share a row: the last. index_select, not
+    # indexing: its backward sums a token's k copies in a fixed order
+    buf[slot] = xf.index_select(0, stok)
     buf = buf[:-1].reshape(e, cap, d)
 
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
@@ -126,7 +128,7 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
 
     out_flat = out.reshape(e * cap, d)
     gathered = torch.where(keep[:, None],
-                           out_flat[slot.clamp(max=e * cap - 1)],
+                           out_flat.index_select(0, slot.clamp(max=e * cap - 1)),
                            0.0) * sw[:, None]                 # sorted order
     # each token's k entries, by their sorted position: ascending expert id
     where = torch.empty_like(order)
@@ -142,8 +144,33 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
 
 
 # --------------------------------------------------------------------------
-# serving
+# forward (training) / serving
 # --------------------------------------------------------------------------
+
+def _block(lp, cfg: ModelConfig, x, positions,
+           capacity_factor=CAPACITY_FACTOR):
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + cm.attention_train(lp["attn"], cfg, h, positions=positions)
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y, aux = moe_block(lp["moe"], cfg, h, capacity_factor)
+    return x + y, aux
+
+
+def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True,
+                  capacity_factor=CAPACITY_FACTOR):
+    """tokens: (B, T) -> (logits (B, T, V), aux loss summed over layers).
+    Training routes with GShard's capacity, so an expert past it drops
+    entries."""
+    x = cm.embed(params["embedding"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(x, lp):
+        return _block(lp, cfg, x, positions, capacity_factor)
+
+    x, auxes = cm.layer_scan(body, x, params["layers"], remat)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cm.unembed(params["embedding"], x), torch.stack(auxes).sum()
+
 
 def ffn(lp, cfg: ModelConfig, h):
     """One layer's feed-forward when serving: ``moe_block`` in serving

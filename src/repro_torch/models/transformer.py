@@ -1,7 +1,7 @@
 """Dense decoder-only transformer (GQA, RoPE, SwiGLU, optional qk-norm) in
-PyTorch: the serving counterpart of ``repro/models/transformer.py``. Covers
-the dense family and the vlm family (pixtral's backbone; the vision frontend
-is a stub projection over precomputed patch embeddings).
+PyTorch: the counterpart of ``repro/models/transformer.py``. Covers the
+dense family and the vlm family (pixtral's backbone; the vision frontend is
+a stub projection over precomputed patch embeddings).
 
 Parameters keep the JAX tree: per-layer leaves are stacked on a leading layer
 axis, and a Python loop over that axis takes the place of ``lax.scan``.
@@ -105,6 +105,42 @@ def layer(layers, i: int):
 
 
 # --------------------------------------------------------------------------
+# forward (training)
+# --------------------------------------------------------------------------
+
+def _block(lp, cfg: ModelConfig, x, positions):
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + cm.attention_train(lp["attn"], cfg, h, positions=positions)
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + cm.mlp(lp["mlp"], h)
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """Token embeddings (B, T, d); for a vlm, ``patch_embeds`` (B,
+    num_patches, frontend_dim), projected by ``vision_proj``, take the place
+    of the first num_patches of them."""
+    x = cm.embed(params["embedding"], tokens)
+    if cfg.num_patches and patch_embeds is not None:
+        patches = patch_embeds.to(x.dtype) @ params["vision_proj"]
+        x = torch.cat([patches, x[:, cfg.num_patches:]], dim=1)
+    return x
+
+
+def forward_train(params, cfg: ModelConfig, tokens, patch_embeds=None,
+                  remat: bool = True):
+    """tokens: (B, T) -> logits (B, T, V)."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(x, lp):
+        return _block(lp, cfg, x, positions), None
+
+    x, _ = cm.layer_scan(body, x, params["layers"], remat)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cm.unembed(params["embedding"], x)
+
+
+# --------------------------------------------------------------------------
 # serving: dense-cache prefill / decode
 # --------------------------------------------------------------------------
 
@@ -128,10 +164,7 @@ def prefill(params, cfg: ModelConfig, tokens, attention=None,
     ``common.attention_prefill`` (default: the flash-prefill op). For a vlm,
     ``patch_embeds`` (B, num_patches, frontend_dim), projected by
     ``vision_proj``, take the place of the first num_patches embeddings."""
-    x = cm.embed(params["embedding"], tokens)
-    if cfg.num_patches and patch_embeds is not None:
-        patches = patch_embeds.to(x.dtype) @ params["vision_proj"]
-        x = torch.cat([patches, x[:, cfg.num_patches:]], dim=1)
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
     return prefill_layers(params, cfg, x, ffn, attention)
 
 

@@ -1,4 +1,4 @@
-"""Whisper-style encoder-decoder (the audio family) in PyTorch: the serving
+"""Whisper-style encoder-decoder (the audio family) in PyTorch: the
 counterpart of ``repro/models/whisper.py``.
 
 The conv frontend is a stub, as in the reference: the caller gives
@@ -68,8 +68,7 @@ def encode(params, cfg: ModelConfig, frames):
     s = x.shape[1]
     full = torch.ones(1, 1, s, s, dtype=torch.bool, device=x.device)
     positions = torch.arange(s, device=x.device)[None, :]
-    for i in range(cfg.encoder_layers):
-        lp = tfm.layer(params["enc_layers"], i)
+    for lp in cm.unstack(params["enc_layers"]):
         h = _ln(lp["ln1"], x, cfg.norm_eps)
         q, k, v = cm._qkv(lp["attn"], cfg, h, positions)
         x = x + cm._out_proj(cm.mha(q, k, v, full, cfg.q_per_kv),
@@ -93,8 +92,36 @@ def _cross_attend(lp, cfg, x, ck, cv):
 
 
 # --------------------------------------------------------------------------
-# decoder: prefill / decode
+# decoder: train / prefill / decode
 # --------------------------------------------------------------------------
+
+def _dec_block(lp, cfg, x, enc_out, positions):
+    h = _ln(lp["ln1"], x, cfg.norm_eps)
+    x = x + cm.attention_train(lp["attn"], cfg, h, positions=positions)
+    h = _ln(lp["ln2"], x, cfg.norm_eps)
+    ck, cv = _cross_kv(lp, enc_out)
+    x = x + _cross_attend(lp, cfg, h, ck, cv)
+    h = _ln(lp["ln3"], x, cfg.norm_eps)
+    return x + cm.mlp(lp["mlp"], h)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, frames,
+                  remat: bool = True):
+    """tokens (B, T), frames (B, S_enc, frontend_dim) -> logits (B, T, V).
+    The encoder runs once, outside the decoder layers' remat."""
+    enc_out = encode(params, cfg, frames)
+    x = cm.embed(params["embedding"], tokens)
+    t = x.shape[1]
+    x = x + params["pos_dec"][None, :t]
+    positions = torch.arange(t, device=x.device)[None, :]
+
+    def body(x, lp):
+        return _dec_block(lp, cfg, x, enc_out, positions), None
+
+    x, _ = cm.layer_scan(body, x, params["dec_layers"], remat)
+    x = _ln(params["final_norm"], x, cfg.norm_eps)
+    return cm.unembed(params["embedding"], x)
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):

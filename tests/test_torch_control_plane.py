@@ -1,10 +1,11 @@
 """The port's control plane against the JAX package's.
 
 Three things are held here:
-- every control-plane module of the port is the reference's module, parsed
-  to the same AST once imports are rewritten to ``repro_torch`` and
-  docstrings dropped, apart from the differences listed (with their reason)
-  in DEVIATIONS;
+- every control-plane module of the port, and every other module it copies
+  (the engine's pure-Python layer, the token pipeline), is the reference's
+  module, parsed to the same AST once imports are rewritten to
+  ``repro_torch`` and docstrings dropped, apart from the differences listed
+  (with their reason) in DEVIATIONS;
 - the same scenarios, run through both planes on the roofline simulator
   with the sanitizer's trace, give the same event trace, span forest,
   per-request results, gateway stats and scale events, bit for bit;
@@ -142,7 +143,9 @@ DEVIATIONS = {
 
 COPIED = sorted(
     ["config.py", "launch/serve.py", "launch/quickstart.py",
-     "data/burstgpt.py"]
+     "data/burstgpt.py", "data/tokens.py"]
+    + [f"engine/{m}.py" for m in ("request", "kv_cache", "scheduler",
+                                  "metrics", "costmodel", "engine")]
     + [f"core/{p.name}" for p in (ROOT / "src/repro/core").glob("*.py")]
     + [f"api/{p.name}" for p in (ROOT / "src/repro/api").glob("*.py")])
 

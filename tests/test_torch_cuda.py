@@ -437,3 +437,111 @@ def test_moe_block_bf16_is_deterministic(gen):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+# (arch, batch, seq_len) of the reduced configs, f32, at 2 layers (the
+# hybrid's 3: one group and a tail layer): hybrid past its window of 64,
+# ssm on whole SSD chunks, vlm past its 16 patches
+TRAIN_FAMILIES = {"dense": ("smollm-135m", 2, 48),
+                  "moe": ("qwen3-moe-30b-a3b", 2, 48),
+                  "ssm": ("mamba2-780m", 2, 64),
+                  "hybrid": ("recurrentgemma-9b", 2, 96),
+                  "audio": ("whisper-small", 2, 48),
+                  "vlm": ("pixtral-12b", 2, 48)}
+TRAIN_RTOL = 1e-4   # loss and grad_norm, card against CPU, TF32 off
+
+
+def _train_batch(cfg, b, t, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (b, t), generator=g)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(b, cfg.encoder_seq_len,
+                                      cfg.frontend_dim, generator=g)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(b, cfg.num_patches,
+                                            cfg.frontend_dim, generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("family", sorted(TRAIN_FAMILIES))
+def test_train_step_on_card_matches_cpu(family, gen, monkeypatch):
+    """One train step (loss, backward, AdamW) from the same f32 weights and
+    batch: the card's loss and grad_norm equal the CPU port's to rel 1e-4,
+    and neither hand-written kernel launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_prefill import kernel as fp
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.models import api
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    name, b, t = TRAIN_FAMILIES[family]
+    cfg = configs.get(name).reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    opt = AdamW(cosine_schedule(1e-3, 1, 10))
+    before = (pa.paged_attention.launches, fp.flash_prefill.launches)
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = tstep.init_train_state(cfg, opt, device=device,
+                                       params=params)
+        _, metrics = tstep.make_train_step(cfg, opt)(
+            state, _train_batch(cfg, b, t, device))
+        out[device] = {k: float(v) for k, v in metrics.items()}
+    assert (pa.paged_attention.launches, fp.flash_prefill.launches) == before
+    for k in ("loss", "aux_loss", "grad_norm", "lr"):
+        assert out["cuda"][k] == pytest.approx(out["cpu"][k], rel=TRAIN_RTOL,
+                                               abs=1e-12), k
+
+
+def test_checkpoint_bf16_on_card_without_ml_dtypes(gen, tmp_path,
+                                                    monkeypatch):
+    """bf16, f32 and int32 leaves on the card save and restore onto the card
+    bit for bit with ``ml_dtypes`` unimportable."""
+    import sys
+    from repro_torch.distributed import checkpoint as ckpt
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    tree = {"p": {"w": torch.randn(64, 48, generator=gen, device="cuda")
+                  .bfloat16(),
+                  "b": torch.randn(48, generator=gen, device="cuda")},
+            "step": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    ckpt.save_checkpoint(tmp_path, 3, tree)
+    step, got = ckpt.restore_checkpoint(tmp_path)
+    assert step == 3
+    assert got["p"]["w"].device.type == "cuda"
+    assert got["p"]["w"].dtype == torch.bfloat16
+    assert torch.equal(got["p"]["w"].view(torch.int16),
+                       tree["p"]["w"].view(torch.int16))
+    assert torch.equal(got["p"]["b"], tree["p"]["b"])
+    assert got["step"].dtype == torch.int32 and int(got["step"]) == 3
+
+
+def test_trainer_on_card_resumes_exactly(gen, tmp_path):
+    """The reduced dense model trains on the card; a trainer resumed from
+    the step-4 checkpoint repeats the uninterrupted run's losses."""
+    from repro_torch import configs
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    cfg = configs.get("smollm-135m").reduced()
+    kw = dict(seq_len=64, global_batch=4, steps=8, log_every=100)
+    a = Trainer(cfg, TrainerConfig(ckpt_every=4, ckpt_dir=str(tmp_path / "a"),
+                                   **kw))
+    ha = a.run()
+    b = Trainer(cfg, TrainerConfig(ckpt_every=1000,
+                                   ckpt_dir=str(tmp_path / "b"), **kw))
+    hb = b.run()
+    assert [h["loss"] for h in ha] == pytest.approx(
+        [h["loss"] for h in hb], rel=1e-5)
+    import shutil
+    shutil.rmtree(tmp_path / "a" / "step_0000000008")
+    c = Trainer(cfg, TrainerConfig(ckpt_every=4, ckpt_dir=str(tmp_path / "a"),
+                                   **kw))
+    assert c.step_idx == 4
+    hc = c.run()
+    assert [h["loss"] for h in hc] == pytest.approx(
+        [h["loss"] for h in ha[4:]], rel=1e-5)
+    assert ha[-1]["loss"] < ha[0]["loss"]
