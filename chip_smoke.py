@@ -71,7 +71,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      simulator as engine (no card work): Table-1 GPU-L bursts of 100, 500
      and 1000, through the Web Gateway and straight into the instance, and
      `python -m repro_torch.launch.serve` with its defaults;
-  8. one JSON line of per-kernel numbers, all measured in this run but the
+  8. the dry run (launch/dryrun.py: DTensors on meta shards over a fake
+     process group) grounded on the card: Mistral-Small-24B's decode step
+     at 4 x 4096 and SmolLM-135M's train step at 2048 x 8 on a 1 x 1 mesh,
+     whose state and input bytes must equal those of the same arguments
+     materialised on the card, and whose FLOPs must equal
+     FlopCounterMode's count of one real step there (neither kernel
+     launches: the steps are the plain ones); then two production cells
+     through `python -m repro_torch.launch.dryrun` on this machine's CPU
+     (Mistral-Small-24B x decode_32k on the 16 x 16 mesh, Qwen3-30B-A3B x
+     train_4k on the 2 x 16 x 16 mesh), each with its lower time;
+  9. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 TF32 is off throughout.
@@ -86,6 +96,7 @@ import itertools
 import json
 import statistics
 import math
+import os
 import re
 import subprocess
 import sys
@@ -128,6 +139,14 @@ TRAIN_FAMILIES = {"dense": ("smollm-135m", 2, 48),
                   "audio": ("whisper-small", 2, 48),
                   "vlm": ("pixtral-12b", 2, 48)}
 TRAIN_FAMILY_RTOL = 1e-4                   # card against CPU, TF32 off
+# the dry run grounded on the card, on a 1 x 1 mesh: (arch, seq_len, batch,
+# kind) at this script's engine size (4 sequences x max_model_len 4096) and
+# at the training phase's shape
+DRYRUN_GROUNDED = (("mistral-small-24b", 4096, 4, "decode"),
+                   (TRAIN, TRAIN_SEQ, TRAIN_BATCH, "train"))
+# production cells, each through `python -m repro_torch.launch.dryrun`
+DRYRUN_CELLS = (("mistral-small-24b", "decode_32k", "single"),
+                ("qwen3-moe-30b-a3b", "train_4k", "multi"))
 # a kernel's kind, by the first pattern its name matches (any case)
 KERNEL_KINDS = {"products": r"gemm|nvjet|xmma|cutlass|s16816|s1688",
                 "softmax": r"softmax",
@@ -1186,6 +1205,111 @@ def phase_train_families():
           f"train families: kernel launches {counts}")
 
 
+def tree_bytes(tree):
+    return sum(size(t) for t in _leaves(tree))
+
+
+def dryrun_real_args(cfg, shape):
+    """The arguments of the cell's step, materialised on the card: seeded
+    bf16 weights (and AdamW's state for training), a zero cache, seeded
+    tokens; positions at the serving prompts' lengths."""
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state
+    gen = torch.Generator("cuda").manual_seed(0)
+    b, t = shape.global_batch, shape.seq_len
+
+    def ints(*s):
+        return torch.randint(0, cfg.vocab_size, s, generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    if shape.kind == "train":
+        state = init_train_state(cfg, AdamW(cosine_schedule(3e-4, 100,
+                                                            10_000)),
+                                 gen, "cuda")
+        return [state, {"tokens": ints(b, t), "labels": ints(b, t)}]
+    pos = torch.tensor([37, 300, 1000, 1500][:b], dtype=torch.int32,
+                       device="cuda")
+    return [api.init_params(cfg, gen, "cuda"), ints(b),
+            api.init_cache(cfg, b, t, device="cuda"), pos]
+
+
+def phase_dryrun():
+    """The dry run (launch/dryrun.py), grounded on the card: for a serving
+    cell (Mistral-Small-24B, one decode step at 4 x 4096) and a training
+    cell (SmolLM-135M at seq 2048 x 8) on a 1 x 1 mesh, the dry run's state
+    and input bytes per device equal the bytes of the same arguments
+    materialised on the card, and FlopCounterMode's count of one real step
+    there equals the dry run's count on meta shards. Then two production
+    cells, each through the module's command line on this machine's CPU.
+    Returns the kernels' launches over the real steps (neither kernel
+    runs: the dry run's steps are the plain ones)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    launches = {}
+    for arch, seq, batch, kind in DRYRUN_GROUNDED:
+        cfg = configs.get(arch)
+        shape = ShapeConfig(f"chip_{kind}", seq, batch, kind)
+        with fake_process_group(1):
+            mesh = make_host_mesh(1, 1)
+            counter, state_b, input_b, lower_s = dryrun.lower_cell(
+                cfg, shape, mesh)
+            step = dryrun.cell_args(cfg, shape, mesh)[0]
+        free_the_card()
+        args = dryrun_real_args(cfg, shape)
+        # what the dry run counts: params and cache (decode), train state
+        # and batch (train)
+        card_b = sum(tree_bytes(args[i]) for i in (
+            (0, 2) if kind == "decode" else (0, 1)))
+        reset_counts()
+        with FlopCounterMode(display=False) as flops:
+            step(*args)
+        torch.cuda.synchronize()
+        launches[f"{arch} {kind}"] = read_counts()
+        del args
+        print(f"dryrun grounded {arch} {kind} " + json.dumps(
+            {"seq_len": seq, "batch": batch, "mesh": "1 x 1",
+             "lower_s": lower_s,
+             "dryrun_state_plus_input_bytes": state_b + input_b,
+             "card_bytes": card_b, "dryrun_flops": counter.flops,
+             "card_flops": flops.get_total_flops(),
+             "dryrun_bytes_accessed": counter.bytes_accessed,
+             "collectives": counter.collectives.count,
+             "launches": launches[f"{arch} {kind}"]}))
+        check(card_b == state_b + input_b,
+              f"dryrun {arch} {kind}: {card_b} bytes on the card, "
+              f"{state_b + input_b} in the dry run")
+        check(flops.get_total_flops() == counter.flops,
+              f"dryrun {arch} {kind}: {flops.get_total_flops()} FLOPs on "
+              f"the card, {counter.flops} in the dry run")
+        check(counter.collectives.count == 0,
+              f"dryrun {arch} {kind}: collectives on a 1 x 1 mesh")
+        check(read_counts() == {"paged_attention": 0, "flash_prefill": 0},
+              f"dryrun {arch} {kind}: a kernel ran in the plain step")
+    free_the_card()
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh], capture_output=True,
+            text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"dryrun {arch} x {shape} x {mesh}: "
+                                   f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        cell = json.loads(run.stdout)
+        print(f"dryrun cell {arch} x {shape} x {mesh} (CPU of the card's "
+              f"host) " + json.dumps({**cell, "wall_s": wall}))
+        check(cell["status"] == "ok" and cell["flops_per_device"] > 0
+              and cell["num_collectives"] > 0,
+              f"dryrun {arch} x {shape} x {mesh}: {cell}")
+    return launches
+
+
 def free_the_card():
     """Drop every tensor a finished phase left behind; the next path's
     weights need the card to themselves."""
@@ -1256,6 +1380,10 @@ def main():
     phase_train_families()
     print(f"training phase: {time.perf_counter() - t0:.1f} s")
     phase_plane_host()
+    t0 = time.perf_counter()
+    for path, counts in phase_dryrun().items():
+        launches[f"dryrun {path}"] = counts
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"

@@ -12,6 +12,8 @@ buffer of ``attn_window`` slots. Decode updates the cache in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -27,34 +29,29 @@ C_GATE = 8.0  # Griffin's fixed gate sharpness
 # init
 # --------------------------------------------------------------------------
 
-def linspace(leaf, lo: float, hi: float):
-    """Fills ``leaf`` (n, width) with n copies of the JAX initializer's
-    linspace row: ``width`` values from lo to hi, made in f32 and cast."""
-    row = torch.linspace(lo, hi, leaf.shape[-1], dtype=torch.float32,
-                         device=leaf.device)
-    return leaf.copy_(row.to(leaf.dtype).expand_as(leaf))
-
-
-def init_rec(cfg: ModelConfig, n: int, normal, ones, zeros):
+def init_rec(cfg: ModelConfig, n: int, ini):
     """Stacked leaves of ``n`` rec layers."""
     d, w, k = cfg.d_model, cfg.rnn_width, cfg.conv_kernel
     h = cfg.num_heads
     bs = w // h
+    L = tfm.L
     return {
-        "w_gate_branch": normal((n, d, w), d ** -0.5),
-        "w_in": normal((n, d, w), d ** -0.5),
-        "w_out": normal((n, w, d), w ** -0.5),
-        "conv_w": normal((n, k, w), k ** -0.5),
-        "conv_b": zeros((n, w)),
-        "gate_x": normal((n, h, bs, bs), bs ** -0.5),
-        "gate_a": normal((n, h, bs, bs), bs ** -0.5),
-        "bias_x": zeros((n, w)),
-        "bias_a": zeros((n, w)),
+        "w_gate_branch": ini.normal((n, d, w), d ** -0.5, L + ("embed", "rnn")),
+        "w_in": ini.normal((n, d, w), d ** -0.5, L + ("embed", "rnn")),
+        "w_out": ini.normal((n, w, d), w ** -0.5, L + ("rnn", "embed")),
+        "conv_w": ini.normal((n, k, w), k ** -0.5, L + (None, "rnn")),
+        "conv_b": ini.zeros((n, w), L + ("rnn",)),
+        "gate_x": ini.normal((n, h, bs, bs), bs ** -0.5,
+                             L + ("q_heads", None, None)),
+        "gate_a": ini.normal((n, h, bs, bs), bs ** -0.5,
+                             L + ("q_heads", None, None)),
+        "bias_x": ini.zeros((n, w), L + ("rnn",)),
+        "bias_a": ini.zeros((n, w), L + ("rnn",)),
         # so that a = sigmoid(lam)^c spans roughly (0.9, 0.999)
-        "lam": linspace(zeros((n, w)), 0.7, 2.5),
-        "mlp": tfm.init_mlp(normal, zeros, n, d, cfg.d_ff),
-        "ln1": ones((n, d)),
-        "ln2": ones((n, d)),
+        "lam": ini.linspace((n, w), 0.7, 2.5, L + ("rnn",)),
+        "mlp": tfm.init_mlp(ini, n, d, cfg.d_ff),
+        "ln1": ini.ones((n, d), L + ("embed",)),
+        "ln2": ini.ones((n, d), L + ("embed",)),
     }
 
 
@@ -64,30 +61,33 @@ def group_counts(cfg: ModelConfig):
     return cfg.num_layers // pat, cfg.num_layers % pat
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights drawn from ``generator`` (on ``device``) with the JAX
-    fan-in scales, each leaf in its dtype."""
-    normal, ones, zeros = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
-                                      require_device(device))
+def build(cfg: ModelConfig, ini):
+    """The param tree, each leaf made by ``ini`` (``transformer.Drawers`` or
+    ``AxisNames``) with the JAX fan-in scales, each leaf in its dtype."""
     n_groups, n_tail = group_counts(cfg)
     d = cfg.d_model
+    L = tfm.L
     p = {
-        "embedding": tfm.init_embedding(cfg, normal),
+        "embedding": tfm.init_embedding(cfg, ini),
         "groups": {
-            "rec1": init_rec(cfg, n_groups, normal, ones, zeros),
-            "rec2": init_rec(cfg, n_groups, normal, ones, zeros),
-            "attn": {"attn": tfm.init_attention(cfg, normal, ones,
-                                                n=n_groups),
-                     "mlp": tfm.init_mlp(normal, zeros, n_groups, d,
-                                         cfg.d_ff),
-                     "ln1": ones((n_groups, d)),
-                     "ln2": ones((n_groups, d))},
+            "rec1": init_rec(cfg, n_groups, ini),
+            "rec2": init_rec(cfg, n_groups, ini),
+            "attn": {"attn": tfm.init_attention(cfg, ini, n=n_groups),
+                     "mlp": tfm.init_mlp(ini, n_groups, d, cfg.d_ff),
+                     "ln1": ini.ones((n_groups, d), L + ("embed",)),
+                     "ln2": ini.ones((n_groups, d), L + ("embed",))},
         },
-        "final_norm": ones((d,)),
+        "final_norm": ini.ones((d,), ("embed",)),
     }
     if n_tail:
-        p["tail"] = init_rec(cfg, n_tail, normal, ones, zeros)
+        p["tail"] = init_rec(cfg, n_tail, ini)
     return p
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
+    """Random weights drawn from ``generator`` (on ``device``); on the meta
+    device, shapes and dtypes alone."""
+    return build(cfg, tfm.drawers(cfg, generator, device))
 
 
 # --------------------------------------------------------------------------
@@ -146,6 +146,12 @@ def rg_lru_step(p, u, h_prev):
 def causal_conv(x, w, b):
     """Depthwise causal conv. x (B, T, W), w (k, W) -> (B, T, W); shift i
     takes tap k-1-i."""
+    if cm.sharded_ops() is not None:
+        return cm.sharded_ops().time_local(_causal_conv)(x, w, b)
+    return _causal_conv(x, w, b)
+
+
+def _causal_conv(x, w, b):
     k = w.shape[0]
     out = torch.zeros_like(x) + b
     for i in range(k):
@@ -164,6 +170,13 @@ def causal_conv_step(x, conv_state, w, b):
 
 def conv_state(x, k: int):
     """The last k-1 inputs of x (B, T, W), zero-padded in front."""
+    last = functools.partial(_conv_state, k=k)
+    if cm.sharded_ops() is not None:
+        return cm.sharded_ops().time_local(last)(x)
+    return last(x)
+
+
+def _conv_state(x, k: int):
     return F.pad(x, (0, 0, k - 1, 0))[:, -(k - 1):]
 
 
@@ -195,7 +208,7 @@ def _rec_block_prefill(p, cfg: ModelConfig, x):
     u = causal_conv(conv_in, p["conv_w"], p["conv_b"])
     log_a, x_in = _rg_lru_gates(p, u)
     hs = linear_scan(log_a, x_in)
-    x = x + (gate * hs.to(u.dtype)) @ p["w_out"]
+    x = x + cm.reduced((gate * hs.to(u.dtype)) @ p["w_out"])
     h2 = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
     out = x + cm.mlp(p["mlp"], h2)
     return out, hs[:, -1], conv_state(conv_in, cfg.conv_kernel)
@@ -208,7 +221,7 @@ def _rec_block_step(p, cfg: ModelConfig, x, h_state, conv):
     u, conv = causal_conv_step(h @ p["w_in"], conv, p["conv_w"],
                                p["conv_b"])
     r, h_state = rg_lru_step(p, u, h_state)
-    x = x + (gate * r) @ p["w_out"]
+    x = x + cm.reduced((gate * r) @ p["w_out"])
     h = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + cm.mlp(p["mlp"], h), h_state, conv
 
@@ -222,6 +235,7 @@ def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True):
     backward pass under ``remat``; the tail layers are not, as in the
     reference."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, gp):
@@ -258,12 +272,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """``init_cache``'s tree on the meta device: shapes and dtypes alone."""
+    return init_cache(cfg, batch, max_len, dtype, "meta")
+
+
 def prefill(params, cfg: ModelConfig, tokens, attention=None):
     """Full prefill over tokens (B, T). Returns (last-token logits (B, V),
     cache as ``init_cache`` lays it out, the KV in rolling-window layout).
     ``attention`` is passed to ``common.attention_prefill`` (default: the
     flash-prefill op)."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
     n_groups, n_tail = group_counts(cfg)
     cache = {"g_k": [], "g_v": [], "g_h": [], "g_conv": []}
     for i in range(n_groups):
@@ -296,6 +317,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
     """tokens, pos: (B,). Updates the cache in place. Returns (logits (B, V),
     cache)."""
     x = cm.embed(params["embedding"], tokens)                  # (B, d)
+    x = cm.act_shard(x[:, None], "batch", None, None)[:, 0]
     n_groups, n_tail = group_counts(cfg)
     for i in range(n_groups):
         gp = tfm.layer(params["groups"], i)
@@ -318,4 +340,4 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
         cache["t_h"][i] = h
         cache["t_conv"][i] = c
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return cm.unembed(params["embedding"], x), cache
+    return cm.unembed(params["embedding"], x[:, None])[:, 0], cache

@@ -9,6 +9,8 @@ updates the cache in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -25,30 +27,38 @@ def _dims(cfg: ModelConfig):
     return d_in, nheads, cfg.ssm_n_groups, cfg.ssm_state_size
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights drawn from ``generator`` (on ``device``) with the JAX
-    fan-in scales, each leaf in its dtype."""
-    normal, ones, zeros = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
-                                      require_device(device))
+def build(cfg: ModelConfig, ini):
+    """The param tree, each leaf made by ``ini`` (``transformer.Drawers`` or
+    ``AxisNames``) with the JAX fan-in scales, each leaf in its dtype."""
     n, d, k = cfg.num_layers, cfg.d_model, cfg.conv_kernel
     d_in, nheads, g, s = _dims(cfg)
     conv_dim = d_in + 2 * g * s
+    L = tfm.L
     return {
-        "embedding": tfm.init_embedding(cfg, normal),
+        "embedding": tfm.init_embedding(cfg, ini),
         "layers": {
-            "in_proj": normal((n, d, 2 * d_in + 2 * g * s + nheads),
-                              d ** -0.5),
-            "conv_w": normal((n, k, conv_dim), k ** -0.5),
-            "conv_b": zeros((n, conv_dim)),
-            "A_log": griffin.linspace(zeros((n, nheads)), 0.0, 2.0),
-            "D": ones((n, nheads)),
-            "dt_bias": griffin.linspace(zeros((n, nheads)), -4.6, 0.0),
-            "norm": ones((n, d_in)),
-            "out_proj": normal((n, d_in, d), d_in ** -0.5),
-            "ln": ones((n, d)),
+            "in_proj": ini.normal((n, d, 2 * d_in + 2 * g * s + nheads),
+                                  d ** -0.5, L + ("embed", "rnn")),
+            "conv_w": ini.normal((n, k, conv_dim), k ** -0.5,
+                                 L + (None, "rnn")),
+            "conv_b": ini.zeros((n, conv_dim), L + ("rnn",)),
+            "A_log": ini.linspace((n, nheads), 0.0, 2.0, L + ("ssm_heads",)),
+            "D": ini.ones((n, nheads), L + ("ssm_heads",)),
+            "dt_bias": ini.linspace((n, nheads), -4.6, 0.0,
+                                    L + ("ssm_heads",)),
+            "norm": ini.ones((n, d_in), L + ("rnn",)),
+            "out_proj": ini.normal((n, d_in, d), d_in ** -0.5,
+                                   L + ("rnn", "embed")),
+            "ln": ini.ones((n, d), L + ("embed",)),
         },
-        "final_norm": ones((d,)),
+        "final_norm": ini.ones((d,), ("embed",)),
     }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
+    """Random weights drawn from ``generator`` (on ``device``); on the meta
+    device, shapes and dtypes alone."""
+    return build(cfg, tfm.drawers(cfg, generator, device))
 
 
 # --------------------------------------------------------------------------
@@ -153,7 +163,7 @@ def _gated_out(lp, cfg, x, y, xs, z):
     y = y.to(x.dtype) + lp["D"].to(x.dtype)[:, None] * xs
     y = y.reshape(*x.shape[:-1], -1)
     y = cm.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps)
-    return x + y @ lp["out_proj"]
+    return x + cm.reduced(y @ lp["out_proj"])
 
 
 def _layer_train(lp, cfg: ModelConfig, x, want_state: bool = False):
@@ -168,8 +178,12 @@ def _layer_train(lp, cfg: ModelConfig, x, want_state: bool = False):
     xs = xs.reshape(b, t, nheads, cfg.ssm_head_dim)
     dt = F.softplus(dt.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
-    y, state = ssd_chunked(xs, dt, A, B.reshape(b, t, g, s),
-                           C.reshape(b, t, g, s), cfg.ssm_chunk)
+    ssd = functools.partial(ssd_chunked, chunk=cfg.ssm_chunk)
+    if cm.sharded_ops() is not None:
+        ssd = cm.sharded_ops().heads_parallel(
+            ssd, ins=((2, True), (2, True), (0, False), (None, True),
+                      (None, True)), outs=((2, True), (1, True)))
+    y, state = ssd(xs, dt, A, B.reshape(b, t, g, s), C.reshape(b, t, g, s))
     out = _gated_out(lp, cfg, x, y, xs, z)
     if want_state:
         return out, state, griffin.conv_state(xBC_raw, cfg.conv_kernel)
@@ -188,8 +202,13 @@ def _layer_step(lp, cfg: ModelConfig, x, ssm_state, conv_state):
     xs = xs.reshape(b, nheads, cfg.ssm_head_dim)
     dt = F.softplus(dt.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].float())
-    y, ssm_state = ssd_step(xs, dt, A, B.reshape(b, g, s),
-                            C.reshape(b, g, s), ssm_state)
+    step = ssd_step
+    if cm.sharded_ops() is not None:
+        step = cm.sharded_ops().heads_parallel(
+            ssd_step, ins=((1, True), (1, True), (0, False), (None, True),
+                           (None, True), (1, True)), outs=((1, True),) * 2)
+    y, ssm_state = step(xs, dt, A, B.reshape(b, g, s), C.reshape(b, g, s),
+                        ssm_state)
     return _gated_out(lp, cfg, x, y, xs, z), ssm_state, conv_state
 
 
@@ -201,6 +220,7 @@ def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True):
     """tokens: (B, T), T below the SSD chunk or a multiple of it -> logits
     (B, T, V)."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
 
     def body(x, lp):
         return _layer_train(lp, cfg, x), None
@@ -225,10 +245,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """``init_cache``'s tree on the meta device: shapes and dtypes alone."""
+    return init_cache(cfg, batch, max_len, dtype, "meta")
+
+
 def prefill(params, cfg: ModelConfig, tokens):
     """Full prefill over tokens (B, T), T below the SSD chunk or a multiple
     of it. Returns (last-token logits (B, V), cache {"ssm", "conv"})."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
     ssm, conv = [], []
     for i in range(cfg.num_layers):
         x, st, cst = _layer_train(tfm.layer(params["layers"], i), cfg, x,
@@ -251,4 +278,4 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
         cache["ssm"][i] = st
         cache["conv"][i] = cst
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return cm.unembed(params["embedding"], x), cache
+    return cm.unembed(params["embedding"], x[:, None])[:, 0], cache

@@ -16,7 +16,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.device import require as require_device
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -27,33 +26,40 @@ CAPACITY_FACTOR = 1.25
 # init
 # --------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights drawn from ``generator`` (on ``device``) with the JAX
-    fan-in scales: router 0.1 * d^-0.5, experts d^-0.5 and f^-0.5 for
-    ``w_down``, a shared SwiGLU of width moe_d_ff * num_shared_experts. Each
-    leaf is drawn directly in its dtype: at full width one expert leaf alone
-    is tens of GB."""
-    normal, ones, _ = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
-                               require_device(device))
+def build(cfg: ModelConfig, ini):
+    """The param tree, each leaf made by ``ini`` (``transformer.Drawers`` or
+    ``AxisNames``) with the JAX fan-in scales: router 0.1 * d^-0.5, experts
+    d^-0.5 and f^-0.5 for ``w_down``, a shared SwiGLU of width moe_d_ff *
+    num_shared_experts. Each leaf is drawn directly in its dtype: at full
+    width one expert leaf alone is tens of GB."""
     n, d = cfg.num_layers, cfg.d_model
     e, f = cfg.num_experts, cfg.moe_d_ff
+    L = tfm.L
     moe = {
-        "router": normal((n, d, e), 0.1 * d ** -0.5),
-        "w_gate": normal((n, e, d, f), d ** -0.5),
-        "w_up": normal((n, e, d, f), d ** -0.5),
-        "w_down": normal((n, e, f, d), f ** -0.5),
+        "router": ini.normal((n, d, e), 0.1 * d ** -0.5,
+                             L + ("embed", "expert")),
+        "w_gate": ini.normal((n, e, d, f), d ** -0.5,
+                             L + ("expert", "embed", "mlp")),
+        "w_up": ini.normal((n, e, d, f), d ** -0.5,
+                           L + ("expert", "embed", "mlp")),
+        "w_down": ini.normal((n, e, f, d), f ** -0.5,
+                             L + ("expert", "mlp", "embed")),
     }
     if cfg.num_shared_experts:
-        fs = f * cfg.num_shared_experts
-        moe["shared"] = {"w_gate": normal((n, d, fs), d ** -0.5),
-                         "w_up": normal((n, d, fs), d ** -0.5),
-                         "w_down": normal((n, fs, d), fs ** -0.5)}
+        moe["shared"] = tfm.init_mlp(ini, n, d, f * cfg.num_shared_experts)
     return {
-        "embedding": tfm.init_embedding(cfg, normal),
-        "layers": {"attn": tfm.init_attention(cfg, normal, ones), "moe": moe,
-                   "ln1": ones((n, d)), "ln2": ones((n, d))},
-        "final_norm": ones((d,)),
+        "embedding": tfm.init_embedding(cfg, ini),
+        "layers": {"attn": tfm.init_attention(cfg, ini), "moe": moe,
+                   "ln1": ini.ones((n, d), L + ("embed",)),
+                   "ln2": ini.ones((n, d), L + ("embed",))},
+        "final_norm": ini.ones((d,), ("embed",)),
     }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
+    """Random weights drawn from ``generator`` (on ``device``); on the meta
+    device, shapes and dtypes alone."""
+    return build(cfg, tfm.drawers(cfg, generator, device))
 
 
 # --------------------------------------------------------------------------
@@ -99,14 +105,14 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     top_p = top_p / top_p.sum(-1, keepdim=True)               # renormalise
 
     cap = capacity(n, k, e, capacity_factor)
-    flat_e = top_i.reshape(-1)                                # (N*k,)
+    flat_e = cm.whole(top_i.reshape(-1))                      # (N*k,)
 
     # load-balancing aux loss (Switch-style); counts are exact in f32
     counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
         0, flat_e, torch.ones(n * k, dtype=torch.float32, device=dev))
     aux = e * torch.sum(counts / (n * k) * probs.mean(0)) \
         * cfg.router_aux_loss_coef
-    flat_w = top_p.reshape(-1).to(x.dtype)
+    flat_w = cm.whole(top_p.reshape(-1).to(x.dtype))
     flat_tok = torch.arange(n * k, device=dev) // k            # (N*k,)
 
     order = torch.argsort(flat_e, stable=True)
@@ -120,13 +126,15 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
     # only dropped entries share a row: the last. index_select, not
     # indexing: its backward sums a token's k copies in a fixed order
-    buf[slot] = xf.index_select(0, stok)
+    buf[slot] = cm.whole(xf).index_select(0, stok)
     buf = buf[:-1].reshape(e, cap, d)
+    buf = cm.act_shard(buf, "expert", None, None)
 
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
     out = torch.bmm(h, p["w_down"])                           # (E, C, d)
+    out = cm.act_shard(out, "expert", None, None)
 
-    out_flat = out.reshape(e * cap, d)
+    out_flat = cm.whole(out.reshape(e * cap, d))
     gathered = torch.where(keep[:, None],
                            out_flat.index_select(0, slot.clamp(max=e * cap - 1)),
                            0.0) * sw[:, None]                 # sorted order
@@ -138,6 +146,7 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     for j in range(1, k):
         y = y + per_tok[:, j]
 
+    y = cm.alike(y, x)
     if "shared" in p:
         y = y + cm.mlp(p["shared"], xf)
     return y.reshape(b, t, d), aux
@@ -162,6 +171,7 @@ def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True,
     Training routes with GShard's capacity, so an expert past it drops
     entries."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, lp):
@@ -180,11 +190,13 @@ def ffn(lp, cfg: ModelConfig, h):
 
 
 init_cache = tfm.init_cache
+cache_specs = tfm.cache_specs
 
 
 def prefill(params, cfg: ModelConfig, tokens, attention=None):
     """As ``transformer.prefill``, each layer's feed-forward the MoE block."""
     x = cm.embed(params["embedding"], tokens)
+    x = cm.act_shard(x, "batch", None, None)
     return tfm.prefill_layers(params, cfg, x, ffn, attention)
 
 

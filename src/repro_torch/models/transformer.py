@@ -21,81 +21,141 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # init
 # --------------------------------------------------------------------------
 
-def drawers(generator: torch.Generator, dtype, device):
-    """(normal(shape, std), ones(shape), zeros(shape)): leaves made directly
-    in ``dtype`` on ``device`` (no f32 temporary), the normal ones drawn from
-    ``generator``, which must live on ``device``."""
-    def normal(shape, std):
-        t = torch.empty(shape, dtype=dtype, device=device)
-        return t.normal_(0.0, std, generator=generator)
+class Drawers:
+    """The leaves of an init, made directly in ``dtype`` on ``device`` (no
+    f32 temporary); ``normal`` draws from ``generator``, which must live on
+    ``device``. On the meta device nothing is drawn or allocated: that is
+    the reference's ``abstract`` init. Each maker also takes the leaf's
+    logical sharding axes, the reference's ``Param`` axes ("layers" first on
+    a stacked leaf); ``AxisNames`` returns those in place of the leaf, so an
+    init states its tree once for both."""
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def __init__(self, generator: torch.Generator | None, dtype, device):
+        self.generator, self.dtype, self.device = generator, dtype, device
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def normal(self, shape, std, axes):
+        t = torch.empty(shape, dtype=self.dtype, device=self.device)
+        return t.normal_(0.0, std, generator=self.generator)
 
-    return normal, ones, zeros
+    def ones(self, shape, axes):
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def zeros(self, shape, axes):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def linspace(self, shape, lo: float, hi: float, axes):
+        """Copies of the JAX initializer's linspace row: ``shape[-1]``
+        values from lo to hi, made in f32 and cast."""
+        row = torch.linspace(lo, hi, shape[-1], dtype=torch.float32,
+                             device=self.device)
+        return self.zeros(shape, axes).copy_(row.to(self.dtype).expand(shape))
 
 
-def init_attention(cfg: ModelConfig, normal, ones, n: int | None = None,
+class AxisNames:
+    """Stands in for ``Drawers``: each maker returns the leaf's logical
+    axes, checked against its rank as the reference's ``Param`` checks."""
+
+    @staticmethod
+    def _axes(shape, axes):
+        if len(shape) != len(axes):
+            raise ValueError(f"axes {axes} rank != shape {shape}")
+        return tuple(axes)
+
+    def normal(self, shape, std, axes):
+        return self._axes(shape, axes)
+
+    def ones(self, shape, axes):
+        return self._axes(shape, axes)
+
+    zeros = ones
+
+    def linspace(self, shape, lo, hi, axes):
+        return self._axes(shape, axes)
+
+
+def drawers(cfg: ModelConfig, generator, device):
+    """The ``Drawers`` of ``cfg``'s param dtype on ``device``."""
+    return Drawers(generator, _DTYPES[cfg.param_dtype], require_device(device))
+
+
+L = ("layers",)
+
+
+def init_attention(cfg: ModelConfig, ini, n: int | None = None,
                    cross: bool = False):
     """Stacked attention leaves of ``n`` layers (default ``cfg.num_layers``);
     a cross-attention has no qk-norm."""
     d, hd = cfg.d_model, cfg.head_dim
     n = cfg.num_layers if n is None else n
+    h, kv = cfg.num_heads, cfg.num_kv_heads
     attn = {
-        "wq": normal((n, d, cfg.num_heads, hd), d ** -0.5),
-        "wk": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
-        "wv": normal((n, d, cfg.num_kv_heads, hd), d ** -0.5),
-        "wo": normal((n, cfg.num_heads, hd, d), (cfg.num_heads * hd) ** -0.5),
+        "wq": ini.normal((n, d, h, hd), d ** -0.5,
+                         L + ("embed", "q_heads", "head_dim")),
+        "wk": ini.normal((n, d, kv, hd), d ** -0.5,
+                         L + ("embed", "kv_heads", "head_dim")),
+        "wv": ini.normal((n, d, kv, hd), d ** -0.5,
+                         L + ("embed", "kv_heads", "head_dim")),
+        "wo": ini.normal((n, h, hd, d), (h * hd) ** -0.5,
+                         L + ("q_heads", "head_dim", "embed")),
     }
     if cfg.qk_norm and not cross:
-        attn["q_norm"] = ones((n, hd))
-        attn["k_norm"] = ones((n, hd))
+        attn["q_norm"] = ini.ones((n, hd), L + ("head_dim",))
+        attn["k_norm"] = ini.ones((n, hd), L + ("head_dim",))
     return attn
 
 
-def init_mlp(normal, zeros, n: int, d: int, f: int, gated: bool = True):
+def init_mlp(ini, n: int, d: int, f: int, gated: bool = True):
     """Stacked MLP leaves of ``n`` layers: SwiGLU, or a GELU MLP with biases
     (zeros) when not ``gated``."""
     if gated:
-        return {"w_gate": normal((n, d, f), d ** -0.5),
-                "w_up": normal((n, d, f), d ** -0.5),
-                "w_down": normal((n, f, d), f ** -0.5)}
-    return {"w_up": normal((n, d, f), d ** -0.5), "b_up": zeros((n, f)),
-            "w_down": normal((n, f, d), f ** -0.5), "b_down": zeros((n, d))}
+        return {"w_gate": ini.normal((n, d, f), d ** -0.5,
+                                     L + ("embed", "mlp")),
+                "w_up": ini.normal((n, d, f), d ** -0.5, L + ("embed", "mlp")),
+                "w_down": ini.normal((n, f, d), f ** -0.5,
+                                     L + ("mlp", "embed"))}
+    return {"w_up": ini.normal((n, d, f), d ** -0.5, L + ("embed", "mlp")),
+            "b_up": ini.zeros((n, f), L + ("mlp",)),
+            "w_down": ini.normal((n, f, d), f ** -0.5, L + ("mlp", "embed")),
+            "b_down": ini.zeros((n, d), L + ("embed",))}
 
 
-def init_embedding(cfg: ModelConfig, normal):
-    embedding = {"tok": normal((cfg.vocab_size, cfg.d_model), 0.02)}
+def init_embedding(cfg: ModelConfig, ini):
+    embedding = {"tok": ini.normal((cfg.vocab_size, cfg.d_model), 0.02,
+                                   ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        embedding["unembed"] = normal((cfg.d_model, cfg.vocab_size),
-                                      cfg.d_model ** -0.5)
+        embedding["unembed"] = ini.normal((cfg.d_model, cfg.vocab_size),
+                                          cfg.d_model ** -0.5,
+                                          ("embed", "vocab"))
     return embedding
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights drawn from ``generator`` (which must live on
-    ``device``): normal with std fan_in^-0.5 for projections, 0.02 for the
-    token embedding, ones for norm scales, as the JAX initializer does."""
-    normal, ones, zeros = drawers(generator, _DTYPES[cfg.param_dtype],
-                                  require_device(device))
+def build(cfg: ModelConfig, ini):
+    """The param tree, each leaf made by ``ini`` (``Drawers`` or
+    ``AxisNames``): normal with std fan_in^-0.5 for projections, 0.02 for
+    the token embedding, ones for norm scales, as the JAX initializer
+    does."""
     d, n = cfg.d_model, cfg.num_layers
     p = {
-        "embedding": init_embedding(cfg, normal),
+        "embedding": init_embedding(cfg, ini),
         "layers": {
-            "attn": init_attention(cfg, normal, ones),
-            "mlp": init_mlp(normal, zeros, n, d, cfg.d_ff),
-            "ln1": ones((n, d)),
-            "ln2": ones((n, d)),
+            "attn": init_attention(cfg, ini),
+            "mlp": init_mlp(ini, n, d, cfg.d_ff),
+            "ln1": ini.ones((n, d), L + ("embed",)),
+            "ln2": ini.ones((n, d), L + ("embed",)),
         },
-        "final_norm": ones((d,)),
+        "final_norm": ini.ones((d,), ("embed",)),
     }
     if cfg.num_patches:
-        p["vision_proj"] = normal((cfg.frontend_dim, d),
-                                  cfg.frontend_dim ** -0.5)
+        p["vision_proj"] = ini.normal((cfg.frontend_dim, d),
+                                      cfg.frontend_dim ** -0.5,
+                                      ("frontend", "embed"))
     return p
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
+    """Random weights drawn from ``generator`` (which must live on
+    ``device``); on the meta device, shapes and dtypes alone."""
+    return build(cfg, drawers(cfg, generator, device))
 
 
 def layer(layers, i: int):
@@ -130,6 +190,7 @@ def forward_train(params, cfg: ModelConfig, tokens, patch_embeds=None,
                   remat: bool = True):
     """tokens: (B, T) -> logits (B, T, V)."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
+    x = cm.act_shard(x, "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, lp):
@@ -152,6 +213,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """``init_cache``'s tree on the meta device: shapes and dtypes alone."""
+    return init_cache(cfg, batch, max_len, dtype, "meta")
+
+
 def ffn(lp, cfg: ModelConfig, h):
     """One layer's feed-forward: the SwiGLU MLP."""
     return cm.mlp(lp["mlp"], h)
@@ -165,6 +232,7 @@ def prefill(params, cfg: ModelConfig, tokens, attention=None,
     ``patch_embeds`` (B, num_patches, frontend_dim), projected by
     ``vision_proj``, take the place of the first num_patches embeddings."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
+    x = cm.act_shard(x, "batch", None, None)
     return prefill_layers(params, cfg, x, ffn, attention)
 
 
@@ -192,6 +260,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos, ffn=ffn):
     Updates the dense cache in place. Returns (logits (B, V), cache).
     ``ffn(lp, cfg, h)`` is each layer's feed-forward."""
     x = cm.embed(params["embedding"], tokens[:, None])
+    x = cm.act_shard(x, "batch", None, None)
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -20,36 +20,44 @@ from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights drawn from ``generator`` (on ``device``) with the JAX
-    fan-in scales, each leaf in its dtype."""
-    normal, ones, zeros = tfm.drawers(generator, tfm._DTYPES[cfg.param_dtype],
-                                      require_device(device))
+def build(cfg: ModelConfig, ini):
+    """The param tree, each leaf made by ``ini`` (``transformer.Drawers`` or
+    ``AxisNames``) with the JAX fan-in scales, each leaf in its dtype."""
     d, fd = cfg.d_model, cfg.frontend_dim
+    L = tfm.L
 
     def ln(*n):
-        return {"scale": ones((*n, d)), "bias": zeros((*n, d))}
+        axes = L * len(n) + ("embed",)
+        return {"scale": ini.ones((*n, d), axes),
+                "bias": ini.zeros((*n, d), axes)}
 
     def stack(n, cross):
-        p = {"attn": tfm.init_attention(cfg, normal, ones, n=n),
-             "mlp": tfm.init_mlp(normal, zeros, n, d, cfg.d_ff, gated=False),
+        p = {"attn": tfm.init_attention(cfg, ini, n=n),
+             "mlp": tfm.init_mlp(ini, n, d, cfg.d_ff, gated=False),
              "ln1": ln(n), "ln2": ln(n)}
         if cross:
-            p["xattn"] = tfm.init_attention(cfg, normal, ones, n=n,
-                                            cross=True)
+            p["xattn"] = tfm.init_attention(cfg, ini, n=n, cross=True)
             p["ln3"] = ln(n)
         return p
 
     return {
-        "embedding": tfm.init_embedding(cfg, normal),
-        "frontend": normal((fd, d), fd ** -0.5),
-        "pos_enc": normal((cfg.encoder_seq_len, d), 0.02),
-        "pos_dec": normal((cfg.max_position_embeddings, d), 0.02),
+        "embedding": tfm.init_embedding(cfg, ini),
+        "frontend": ini.normal((fd, d), fd ** -0.5, ("frontend", "embed")),
+        "pos_enc": ini.normal((cfg.encoder_seq_len, d), 0.02,
+                              (None, "embed")),
+        "pos_dec": ini.normal((cfg.max_position_embeddings, d), 0.02,
+                              (None, "embed")),
         "enc_layers": stack(cfg.encoder_layers, False),
         "dec_layers": stack(cfg.num_layers, True),
         "enc_norm": ln(),
         "final_norm": ln(),
     }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
+    """Random weights drawn from ``generator`` (on ``device``); on the meta
+    device, shapes and dtypes alone."""
+    return build(cfg, tfm.drawers(cfg, generator, device))
 
 
 def _ln(p, x, eps):
@@ -65,6 +73,7 @@ def encode(params, cfg: ModelConfig, frames):
     (non-causal) attention."""
     x = frames.to(params["frontend"].dtype) @ params["frontend"]
     x = x + params["pos_enc"][None, :x.shape[1]]
+    x = cm.act_shard(x, "batch", None, None)
     s = x.shape[1]
     full = torch.ones(1, 1, s, s, dtype=torch.bool, device=x.device)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -113,6 +122,7 @@ def forward_train(params, cfg: ModelConfig, tokens, frames,
     x = cm.embed(params["embedding"], tokens)
     t = x.shape[1]
     x = x + params["pos_dec"][None, :t]
+    x = cm.act_shard(x, "batch", None, None)
     positions = torch.arange(t, device=x.device)[None, :]
 
     def body(x, lp):
@@ -133,6 +143,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for k, shape in (("k", kv), ("v", kv), ("ck", xkv), ("cv", xkv))}
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """``init_cache``'s tree on the meta device: shapes and dtypes alone."""
+    return init_cache(cfg, batch, max_len, dtype, "meta")
+
+
 def prefill(params, cfg: ModelConfig, tokens, frames, attention=None):
     """tokens (B, T), frames (B, S_enc, frontend_dim). Returns (last-token
     logits (B, V), cache {"k", "v": (L, B, T, KV, D), "ck", "cv":
@@ -141,6 +157,7 @@ def prefill(params, cfg: ModelConfig, tokens, frames, attention=None):
     enc_out = encode(params, cfg, frames)
     x = cm.embed(params["embedding"], tokens)
     x = x + params["pos_dec"][None, :x.shape[1]]
+    x = cm.act_shard(x, "batch", None, None)
     cache = {"k": [], "v": [], "ck": [], "cv": []}
     for i in range(cfg.num_layers):
         lp = tfm.layer(params["dec_layers"], i)
@@ -163,12 +180,13 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
     """tokens, pos: (B,). Updates the self-attention cache in place. Returns
     (logits (B, V), cache)."""
     x = cm.embed(params["embedding"], tokens[:, None])
-    x = x + params["pos_dec"][pos][:, None]
+    x = x + cm.embed({"tok": params["pos_dec"]}, pos)[:, None]
+    x = cm.act_shard(x, "batch", None, None)
     for i in range(cfg.num_layers):
         lp = tfm.layer(params["dec_layers"], i)
         h = _ln(lp["ln1"], x, cfg.norm_eps)
         a, _, _ = cm.attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                      cache["v"][i], pos)
+                                      cache["v"][i], pos, seq_logical=None)
         x = x + a
         h = _ln(lp["ln2"], x, cfg.norm_eps)
         x = x + _cross_attend(lp, cfg, h, cache["ck"][i], cache["cv"][i])

@@ -47,9 +47,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamW) -> Callable:
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, attention=None) -> Callable:
+    """``attention`` replaces the flash-prefill op (``api.prefill_fn``)."""
     def prefill_step(params, batch):
-        return api.prefill_fn(params, cfg, batch)
+        return api.prefill_fn(params, cfg, batch, attention)
 
     return prefill_step
 
@@ -63,10 +64,15 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
 
 def init_train_state(cfg: ModelConfig, opt: AdamW,
                      generator: torch.Generator | None = None,
-                     device="cuda", params=None):
+                     device="cuda", params=None, abstract: bool = False):
     """{"params", "opt": {"m", "v", "step"}}: a copy of ``params`` on
     ``device`` when given, else random weights from ``generator`` there (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU). With ``abstract`` every leaf
+    is a meta tensor (params in their dtype, f32 moments, a 0-d int32 step)
+    and nothing is drawn."""
+    if abstract:
+        params = api.init_params(cfg, abstract=True)
+        return {"params": params, "opt": opt.init(params)}
     device = require_device(device)
     if params is None:
         params = api.init_params(cfg, generator, device)

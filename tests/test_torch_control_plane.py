@@ -35,14 +35,16 @@ PACKAGES = ("repro", "repro_torch")
 # --------------------------------------------------------------------------
 
 # port module -> its reference, when the two paths differ
-REFERENCE = {"launch/quickstart.py": "examples/quickstart.py"}
+REFERENCE = {"launch/quickstart.py": "examples/quickstart.py",
+             "launch/serve_cluster.py": "examples/serve_cluster.py"}
 
 # port module -> the names it holds of the reference's top level, where it
 # holds only part of it
 ONLY = {"config.py": ("SLOTarget", "SLO_CLASSES", "DEFAULT_SLO_TARGETS",
                       "DEFAULT_SLO_OBJECTIVES", "ServiceConfig",
-                      "ModelConfig", "HardwareConfig", "TPU_V5E", "GPU_L40S",
-                      "GPU_H100", "HARDWARE")}
+                      "ModelConfig", "ShapeConfig", "SHAPES",
+                      "HardwareConfig", "TPU_V5E", "GPU_L40S", "GPU_H100",
+                      "HARDWARE")}
 
 _DEVICE = ("the port's launchers run on the card unless asked for the CPU "
            "(--device), and raise without one")
@@ -56,10 +58,32 @@ _FACTORY = ("engines are built in one place, launch/drive.py's build_engine "
 # whose definition is the port's own (or that one side lacks), or a pair
 # (reference text, port text) substituted into the reference's source
 # before both are parsed.
+_LINT_SCOPE = ("the linter's scope is the port's own package: a path part "
+               "named repro_torch, not repro, so that the port's copied "
+               "plane and its own engine code are linted")
+_LINT_CLI = "the CLI names the port and lints src/repro_torch by default"
+
 DEVIATIONS = {
-    "config.py": [
-        ("ShapeConfig", "the dry-run shapes wait for the dry-run slice"),
-        ("SHAPES", "the dry-run shapes wait for the dry-run slice"),
+    "launch/serve_cluster.py": [
+        (('import sys\n\nsys.path.insert(0, "src")\n\n', ''),
+         "a module of the package, run with -m, not a script beside src/"),
+    ],
+    "analysis/lint.py": [
+        (('        if p == "repro" and parts[i + 1] == "core":',
+          '        if p == "repro_torch" and parts[i + 1] == "core":'),
+         _LINT_SCOPE),
+        (('        if p == "repro" and parts[i + 1] in SIM_PACKAGES:',
+          '        if p == "repro_torch" and parts[i + 1] in SIM_PACKAGES:'),
+         _LINT_SCOPE),
+    ],
+    "analysis/__main__.py": [
+        (('prog="python -m repro.analysis"',
+          'prog="python -m repro_torch.analysis"'), _LINT_CLI),
+        (('default=["src/repro"]', 'default=["src/repro_torch"]'),
+         _LINT_CLI),
+        (('(default: src/repro)', '(default: src/repro_torch)'), _LINT_CLI),
+        (('args.paths or ["src/repro"]', 'args.paths or ["src/repro_torch"]'),
+         _LINT_CLI),
     ],
     "core/telemetry.py": [
         (("(repro.core.telemetry.METRIC_REGISTRY)",
@@ -143,11 +167,14 @@ DEVIATIONS = {
 
 COPIED = sorted(
     ["config.py", "launch/serve.py", "launch/quickstart.py",
+     "launch/serve_cluster.py",
      "data/burstgpt.py", "data/tokens.py"]
     + [f"engine/{m}.py" for m in ("request", "kv_cache", "scheduler",
                                   "metrics", "costmodel", "engine")]
     + [f"core/{p.name}" for p in (ROOT / "src/repro/core").glob("*.py")]
-    + [f"api/{p.name}" for p in (ROOT / "src/repro/api").glob("*.py")])
+    + [f"api/{p.name}" for p in (ROOT / "src/repro/api").glob("*.py")]
+    + [f"analysis/{p.name}"
+       for p in (ROOT / "src/repro/analysis").glob("*.py")])
 
 
 class _Normalise(ast.NodeTransformer):
@@ -493,6 +520,31 @@ def _twin(scenario):
         for c, n in zip(counters, found):
             c[0] = n
     return out
+
+
+def _serve_cluster(pkg):
+    """The printed summary of the package's serve_cluster example."""
+    import contextlib
+    import io
+    import runpy
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if pkg == "repro":
+            runpy.run_path(str(ROOT / "examples/serve_cluster.py"),
+                           run_name="__main__")
+        else:
+            mod(pkg, "launch.serve_cluster").main()
+    return out.getvalue().splitlines()
+
+
+def test_serve_cluster_prints_the_reference_summary():
+    """launch/serve_cluster.py and examples/serve_cluster.py, from the same
+    seed and request counter, print the same lines: per-minute replicas and
+    queue times, scale events, watch events, finished and rejected counts,
+    usage, router picks, gateway queue and tenant usage."""
+    ref, port = _twin(_serve_cluster)
+    assert any(line.startswith("scale events") for line in port)
+    assert port == ref
 
 
 @pytest.mark.parametrize("scenario", [scenario_table1, scenario_autoscale,
