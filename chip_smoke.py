@@ -81,7 +81,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
      through `python -m repro_torch.launch.dryrun` on this machine's CPU
      (Mistral-Small-24B x decode_32k on the 16 x 16 mesh, Qwen3-30B-A3B x
      train_4k on the 2 x 16 x 16 mesh), each with its lower time;
-  9. one JSON line of per-kernel numbers, all measured in this run but the
+  9. the mesh trainer: SmolLM-135M at full width and depth through
+     Trainer(mesh=...) on a 1 x 1 mesh over a one-rank NCCL group on the
+     card (NCCL takes one rank per device), at the training phase's shape:
+     10 steps with a checkpoint at 5, beside the plain Trainer from the same
+     params; their losses must agree to rel 1e-5, the mesh's step-5
+     checkpoint (written from DTensors) must resume in the plain Trainer
+     and the plain one's on the mesh, each repeating the other's steps 5-9
+     to rel 1e-5; neither kernel may launch. Prints each run's median step
+     wall time, tokens/s, one step's `ms` and profiler `device_ms`, and
+     peak memory, with the card's name and power limit. Then, on this
+     machine's CPU (labelled so: the card takes one rank), `python -m
+     repro_torch.launch.train --devices 4 --data 2 --model 2` on reduced
+     qwen3-1.7b: 3 steps, a rerun that resumes to 5, and the plain CPU
+     launcher's 5 steps, whose last loss the resumed mesh run must repeat
+     to rel 1e-4;
+ 10. one JSON line of per-kernel numbers, all measured in this run but the
      computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 TF32 is off throughout.
@@ -147,6 +162,19 @@ DRYRUN_GROUNDED = (("mistral-small-24b", 4096, 4, "decode"),
 # production cells, each through `python -m repro_torch.launch.dryrun`
 DRYRUN_CELLS = (("mistral-small-24b", "decode_32k", "single"),
                 ("qwen3-moe-30b-a3b", "train_4k", "multi"))
+# the mesh trainer at the training phase's shape on a 1 x 1 mesh over a
+# one-rank NCCL group: steps, and the checkpoint each trainer resumes from
+MESH_STEPS, MESH_CKPT = 10, 5
+MESH_RTOL = 1e-5                           # mesh against plain, resumes too
+# `python -m repro_torch.launch.train` on 4 gloo ranks of the host's CPU: the
+# run, its resume, and the plain CPU launcher's run it must repeat
+MESH_CPU_ARGS = ("--reduced", "--arch", "qwen3-1.7b", "--seq-len", "32",
+                 "--global-batch", "4")
+MESH_CPU_STEPS = (3, 5)
+MESH_CPU_RTOL = 1e-4                       # as the CPU twin's curves
+# the families whose sharded steps take their own hooks (MoE dispatch, SSD
+# scan, causal convs, the recurrent block): 2 steps each, mesh and plain
+MESH_CPU_FAMILIES = ("qwen3-moe-30b-a3b", "mamba2-780m", "recurrentgemma-9b")
 # a kernel's kind, by the first pattern its name matches (any case)
 KERNEL_KINDS = {"products": r"gemm|nvjet|xmma|cutlass|s16816|s1688",
                 "softmax": r"softmax",
@@ -1310,6 +1338,181 @@ def phase_dryrun():
     return launches
 
 
+def phase_mesh_train(cfg, card):
+    """SmolLM-135M at full width and depth through Trainer(mesh=...) on a
+    1 x 1 mesh over a one-rank NCCL group, against the plain Trainer from
+    the same params, and each resumed from the other's step-5 checkpoint.
+    Returns the kernels' launches over the mesh path's own runs (the mesh
+    run and the plain checkpoint resumed on the mesh), each counted from 0
+    just before it and read just after it; the plain runs' are printed."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.models import api
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    device = init_process_group("cuda", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        check(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+              f"mesh train: a {mesh.device_type} mesh over "
+              f"{dist.get_backend()}")
+        params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                                 device)
+        runs, resumed, counts = {}, {}, {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+            def trainer(name, m, **kw):
+                return Trainer(cfg, TrainerConfig(
+                    seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    steps=MESH_STEPS, ckpt_every=MESH_CKPT,
+                    ckpt_dir=f"{d}/{name}", log_every=MESH_STEPS),
+                    device=device, mesh=m, **kw)
+
+            for name, m in (("plain", None), ("mesh", mesh)):
+                free_the_card()
+                torch.cuda.reset_peak_memory_stats()
+                tr = trainer(name, m, params=params)
+                reset_counts()
+                tr.run()
+                counts[name] = read_counts()
+                peak = torch.cuda.max_memory_allocated()
+                batch = tr._batch(MESH_STEPS)
+                with tr._sharded():
+                    ms, device_ms, _, ops = time_step(
+                        lambda: tr._step(tr.state, batch), iters=2, n=1)[:4]
+                step_s = statistics.median(
+                    h["wall_s"] for h in tr.history[1:])
+                runs[name] = {
+                    "losses": [h["loss"] for h in tr.history],
+                    "median_step_s": step_s,
+                    "tokens_per_s": TRAIN_SEQ * TRAIN_BATCH / step_s,
+                    "first_step_s": tr.history[0]["wall_s"],
+                    "step_ms": ms, "step_device_ms": device_ms,
+                    "device_busy_share": device_ms / ms,
+                    "peak_mem_gb": peak / 1e9, "top_ops": ops[:3]}
+                del tr, batch
+            del params
+            for src, dst, m in (("mesh", "mesh_to_plain", None),
+                                ("plain", "plain_to_mesh", mesh)):
+                free_the_card()
+                step_dir = f"step_{MESH_CKPT:010d}"
+                shutil.copytree(f"{d}/{src}/{step_dir}",
+                                f"{d}/{dst}/{step_dir}")
+                tr = trainer(dst, m)
+                check(tr.step_idx == MESH_CKPT,
+                      f"mesh train {dst}: resumed at {tr.step_idx}")
+                reset_counts()
+                tr.run()
+                counts[dst] = read_counts()
+                resumed[dst] = [h["loss"] for h in tr.history]
+                del tr
+    finally:
+        dist.destroy_process_group()
+
+    mesh_counts = {k: counts["mesh"][k] + counts["plain_to_mesh"][k]
+                   for k in counts["mesh"]}
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    plain = runs["plain"]["losses"]
+    diffs = {"mesh_vs_plain": rel(runs["mesh"]["losses"], plain),
+             **{k: rel(v, plain[MESH_CKPT:]) for k, v in resumed.items()}}
+    print(f"mesh train {cfg.name} 1 x 1 NCCL mesh against no mesh " +
+          json.dumps({"card": card, "seq_len": TRAIN_SEQ,
+                      "batch": TRAIN_BATCH, "steps": MESH_STEPS,
+                      **runs, "resumed_at": MESH_CKPT,
+                      "resumed_losses": resumed,
+                      "max_rel_diff": diffs, "launches_by_run": counts,
+                      "launches": mesh_counts}))
+    for name, r in runs.items():
+        check(len(r["losses"]) == MESH_STEPS
+              and all(math.isfinite(x) for x in r["losses"]),
+              f"mesh train {name}: losses {r['losses']}")
+    for k, v in resumed.items():
+        check(len(v) == MESH_STEPS - MESH_CKPT, f"mesh train {k}: {v}")
+    check(max(diffs.values()) <= MESH_RTOL,
+          f"mesh train: mesh and plain differ: {diffs}")
+    check(all(c == {"paged_attention": 0, "flash_prefill": 0}
+              for c in counts.values()),
+          f"mesh train: kernel launches {counts}")
+    return mesh_counts
+
+
+def launch_train(*argv):
+    """`python -m repro_torch.launch.train` with ``argv``, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        stdin=subprocess.DEVNULL,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def launched(name, proc, t0):
+    """The launcher's last step, loss and grad norm, and its wall time."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0,
+          f"mesh train CPU {name}: {stdout[-2000:]}{stderr[-3000:]}")
+    done = re.search(r"done: step (\d+), loss ([\d.]+), gnorm ([\d.]+)",
+                     stdout)
+    check(done is not None, f"mesh train CPU {name}: {stdout}")
+    return {"wall_s": time.perf_counter() - t0, "step": int(done.group(1)),
+            "last_loss": float(done.group(2)),
+            "last_grad_norm": float(done.group(3)),
+            "resumed": "resuming from step" in stdout}
+
+
+def phase_mesh_train_cpu():
+    """`python -m repro_torch.launch.train --devices 4 --data 2 --model 2`
+    on this machine's CPU (4 gloo ranks): a run, a rerun that resumes it,
+    and the plain CPU launcher, whose last loss the resumed run repeats;
+    then each of MESH_CPU_FAMILIES on the mesh beside its plain run, whose
+    last loss and grad norm it repeats."""
+    mesh = ("--devices", "4", "--data", "2", "--model", "2")
+    out, families = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as d:
+        for name, extra, steps in (("mesh", mesh, MESH_CPU_STEPS[0]),
+                                   ("mesh resumed", mesh, MESH_CPU_STEPS[1]),
+                                   ("plain", ("--device", "cpu"),
+                                    MESH_CPU_STEPS[1])):
+            t0 = time.perf_counter()
+            out[name] = launched(name, launch_train(
+                *MESH_CPU_ARGS, *extra, "--steps", str(steps), "--ckpt-dir",
+                f"{d}/{'plain' if name == 'plain' else 'mesh'}"), t0)
+        t0 = time.perf_counter()                 # every family at once
+        procs = {(arch, k): launch_train(
+            *MESH_CPU_ARGS, "--arch", arch, "--steps", "2", *extra,
+            "--ckpt-dir", f"{d}/{arch}_{k}")
+            for arch in MESH_CPU_FAMILIES
+            for k, extra in (("mesh", mesh), ("plain", ("--device", "cpu")))}
+        for (arch, k), proc in procs.items():
+            families.setdefault(arch, {})[k] = launched(f"{arch} {k}", proc,
+                                                        t0)
+    print("mesh train CPU of the card's host (4 gloo ranks, not the card) " +
+          json.dumps({"args": " ".join(MESH_CPU_ARGS + mesh), **out,
+                      "families": families}))
+    a, b = out["mesh resumed"]["last_loss"], out["plain"]["last_loss"]
+    check(out["mesh"]["step"] == MESH_CPU_STEPS[0]
+          and out["mesh resumed"]["resumed"]
+          and out["mesh resumed"]["step"] == MESH_CPU_STEPS[1]
+          and abs(a - b) <= MESH_CPU_RTOL * abs(b) + 1e-4,  # 2 roundings
+          f"mesh train CPU: {out}")
+    for arch, r in families.items():
+        m, p = r["mesh"], r["plain"]
+        check(m["step"] == p["step"] == 2
+              and abs(m["last_loss"] - p["last_loss"])
+              <= MESH_CPU_RTOL * p["last_loss"] + 1e-4
+              and abs(m["last_grad_norm"] - p["last_grad_norm"])
+              <= MESH_CPU_RTOL * p["last_grad_norm"] + 1e-6,
+              f"mesh train CPU {arch}: {r}")
+
+
 def free_the_card():
     """Drop every tensor a finished phase left behind; the next path's
     weights need the card to themselves."""
@@ -1384,6 +1587,12 @@ def main():
     for path, counts in phase_dryrun().items():
         launches[f"dryrun {path}"] = counts
     print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+    free_the_card()
+    t0 = time.perf_counter()
+    launches[f"{TRAIN} training on a 1 x 1 mesh"] = phase_mesh_train(
+        configs.get(TRAIN), smi)
+    phase_mesh_train_cpu()
+    print(f"mesh train phase: {time.perf_counter() - t0:.1f} s ({smi})")
 
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"

@@ -26,8 +26,8 @@ from types import SimpleNamespace
 from typing import Any
 
 import torch
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
-                                      distribute_tensor)
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import common as cm
 
@@ -178,11 +178,39 @@ def cache_shardings(mesh, cache_specs_tree, batch: int):
     return _tree_map(one, cache_specs_tree)
 
 
-def distribute(tree, shardings):
-    """Each tensor of ``tree`` (or ``tree`` itself, a tensor) as a DTensor
-    under its sharding; meta tensors stay meta: nothing is allocated."""
-    return _tree_map(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
-                     tree, shardings)
+def is_fake(group=None) -> bool:
+    """Whether ``group`` (the default group if None) is a fake one, whose
+    collectives compute nothing."""
+    return dist.get_backend(group) == "fake"
+
+
+def mesh_device_type() -> str:
+    """The device type of a mesh over the initialised group: "cuda" for
+    NCCL, "cpu" for gloo and fake."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def distribute(tree, shardings, device=None):
+    """Each whole tensor of ``tree`` (or ``tree`` itself, a tensor; the same
+    values on every rank) as a DTensor under its sharding, its local shard
+    moved to ``device`` when given. No collective runs: every rank cuts its
+    own shard, a copy where it is smaller than the tensor, so the whole one
+    may be freed. Meta tensors stay meta: nothing is allocated."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def one(t, s):
+        shape, offset = compute_local_shape_and_global_offset(
+            t.shape, s.mesh, s.placements)
+        local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        if local.numel() != t.numel():
+            local = local.clone(memory_format=torch.contiguous_format)
+        if device is not None:
+            local = local.to(device)
+        return DTensor.from_local(
+            local, s.mesh, s.placements, run_check=False, shape=t.shape,
+            stride=torch.empty(t.shape, device="meta").stride())
+    return _tree_map(one, tree, shardings)
 
 
 # --------------------------------------------------------------------------
@@ -198,7 +226,7 @@ def _as_dtensor(x, mesh):
                               run_check=False)
 
 
-def _full(x):
+def whole(x):
     """x's whole value on every device: a DTensor is gathered."""
     if isinstance(x, DTensor):
         return x.redistribute(x.device_mesh,
@@ -207,7 +235,7 @@ def _full(x):
 
 
 def alike(y, x):
-    """A plain y (computed on ``_full`` values) as a replicated DTensor on
+    """A plain y (computed on ``whole`` values) as a replicated DTensor on
     x's mesh, through the differentiable ``from_local``."""
     if isinstance(y, DTensor) or not isinstance(x, DTensor):
         return y
@@ -230,7 +258,7 @@ def write_rows(cache, slot, rows):
     shape, offset = compute_local_shape_and_global_offset(
         cache.shape, cache.device_mesh, cache.placements)
     local = cache.to_local()
-    rows, slot = _full(rows), _full(slot)
+    rows, slot = whole(rows), whole(slot)
     rows = rows[offset[0]:offset[0] + shape[0]]
     for d in range(2, cache.ndim):
         rows = rows.narrow(d - 1, offset[d], shape[d])
@@ -364,6 +392,18 @@ def attention(attend, q, k, v, mask, seq_logical):
     return attend(q, k, v, mask, seq_logical)
 
 
+def _grad_layouts(layouts):
+    """``local_map``'s gradient placements for inputs in ``layouts``: an
+    input replicated over a mesh dim that splits the work (another input is
+    sharded over it) takes a gradient from every device's part there, a
+    partial sum; left to ``local_map``'s default, each device would keep
+    only its own part's."""
+    split = {i for lay in layouts for i, p in enumerate(lay)
+             if isinstance(p, Shard)}
+    return tuple([Partial() if i in split and isinstance(p, Replicate)
+                  else p for i, p in enumerate(lay)] for lay in layouts)
+
+
 def heads_parallel(fn, ins, outs):
     """``fn`` on each device's batch rows and heads, as ``attention`` runs
     attention: mamba2's scans, whose products on DTensors merge batch and
@@ -393,9 +433,11 @@ def heads_parallel(fn, ins, outs):
                     and head_dim is not None else Replicate()
                     for i in range(mesh.ndim)]
 
+        in_layouts = tuple(layout(*i) for i in ins)
         return local_map(
             fn, out_placements=tuple(layout(*o) for o in outs),
-            in_placements=tuple(layout(*i) for i in ins),
+            in_placements=in_layouts,
+            in_grad_placements=_grad_layouts(in_layouts),
             device_mesh=mesh, redistribute_inputs=True)(*args)
     return run
 
@@ -427,8 +469,9 @@ def time_local(fn):
             return [Shard(t.ndim - 1) if isinstance(p, Shard) and p.dim == last
                     else Replicate() for p in layout]
 
-        return local_map(fn, out_placements=layout,
-                         in_placements=(layout, *map(follow, params)),
+        in_layouts = (layout, *map(follow, params))
+        return local_map(fn, out_placements=layout, in_placements=in_layouts,
+                         in_grad_placements=_grad_layouts(in_layouts),
                          device_mesh=x.device_mesh,
                          redistribute_inputs=True)(x, *params)
     return run
@@ -512,7 +555,7 @@ def install_activation_rules(mesh):
                                        pinned=pinned,
                                        embedding=embedding,
                                        take_along_last=take_along_last,
-                                       whole=_full, attention=attention,
+                                       whole=whole, attention=attention,
                                        heads_parallel=heads_parallel,
                                        time_local=time_local,
                                        gathered_layer=gathered_layer,

@@ -545,3 +545,36 @@ def test_trainer_on_card_resumes_exactly(gen, tmp_path):
     assert [h["loss"] for h in hc] == pytest.approx(
         [h["loss"] for h in ha[4:]], rel=1e-5)
     assert ha[-1]["loss"] < ha[0]["loss"]
+
+
+def test_mesh_trainer_on_card_equals_the_plain_trainer(gen, tmp_path):
+    """The reduced dense model on a 1 x 1 mesh over a one-rank NCCL group
+    gives the plain trainer's losses on the card (rel 1e-5), and its step-4
+    checkpoint, written from DTensors, resumes in the plain trainer."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    init_process_group("cuda", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        assert mesh.device_type == "cuda"
+        cfg = configs.get("smollm-135m").reduced()
+        kw = dict(seq_len=64, global_batch=4, steps=8, ckpt_every=4,
+                  log_every=100)
+        hm = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "m"), **kw),
+                     mesh=mesh).run()
+        hp = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "p"),
+                                        **kw)).run()
+        assert [h["loss"] for h in hm] == pytest.approx(
+            [h["loss"] for h in hp], rel=1e-5)
+        step = "step_0000000004"
+        shutil.copytree(tmp_path / "m" / step, tmp_path / "r" / step)
+        r = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "r"), **kw))
+        assert r.step_idx == 4
+        assert [h["loss"] for h in r.run()] == pytest.approx(
+            [h["loss"] for h in hp[4:]], rel=1e-5)
+    finally:
+        dist.destroy_process_group()

@@ -19,7 +19,6 @@ Each test that builds a process group destroys it (xdist runs this file in
 one worker).
 """
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -43,6 +42,7 @@ from repro_torch.config import SHAPES, ShapeConfig  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_process_group, make_host_mesh  # noqa: E402,E501
+from repro_torch.launch.mesh import free_port  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -332,12 +332,6 @@ def test_model_axis_reduces_row_parallel_products():
     assert stats.total_bytes > 0
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 _GLOO = textwrap.dedent("""
     import sys
     import torch
@@ -422,7 +416,7 @@ def test_gloo_sharded_steps_equal_the_unsharded_port(tmp_path):
     script.write_text(_GLOO)
     out = tmp_path / "res.pt"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    run = subprocess.run([sys.executable, str(script), str(_free_port()),
+    run = subprocess.run([sys.executable, str(script), str(free_port()),
                           str(out)], capture_output=True, text=True,
                          timeout=300, env=env)
     assert run.returncode == 0, run.stderr[-3000:]
