@@ -49,6 +49,8 @@ class LLMEngine:
         self.on_handoff = None
         self.metrics = EngineMetrics()
         self._rng = np.random.default_rng(0)
+        # a StepTracer (engine/steptrace.py) records each step's spans
+        self.tracer = None
 
     def set_phase(self, phase_mode: str):
         """Specialise this engine to one serving phase (disaggregated
@@ -140,6 +142,9 @@ class LLMEngine:
 
     # ------------------------------------------------------------------
     def step(self, now: float) -> StepReport:
+        tr = self.tracer
+        if tr is not None:
+            t0 = tr.now()
         out = self.scheduler.schedule(now)
         self.metrics.preemptions += len(out.preempted)
         if out.kind == "idle":
@@ -162,6 +167,9 @@ class LLMEngine:
                 "pos": [s.kv.num_tokens - 1 for s in out.decode],
                 "block_tables": [s.kv.block_table for s in out.decode],
             }
+        if tr is not None:
+            tr.begin(t0)
+            tr.span("engine.schedule", t0)
 
         pre_logits, dec_logits, elapsed = self.executor.step(
             prefill_specs, decode_spec)
@@ -169,6 +177,8 @@ class LLMEngine:
         t_done = now + elapsed
         finished = 0
         tokens = 0
+        if tr is not None:
+            t1 = tr.now()
 
         if out.decode:
             for i, s in enumerate(out.decode):
@@ -194,6 +204,9 @@ class LLMEngine:
             # already carries its first token — no sample, no handoff; the
             # next step decodes it like any running sequence
 
+        if tr is not None:
+            tr.span("engine.sample", t1)
+            tr.close()
         return StepReport("mixed", elapsed, tokens=tokens, finished=finished)
 
     # -- disaggregation (repro.core.disagg) ------------------------------

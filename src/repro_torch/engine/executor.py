@@ -68,10 +68,12 @@ class RealExecutor:
     slab holds those values exactly, being written from them) and runs
     ``decode_fn`` on it, as the reference's ``decode_fn`` runs on its own
     caches. ``decode_steps`` and ``prefill_computes`` count the model passes
-    this executor ran.
+    this executor ran. With a ``tracer`` (``engine/steptrace.py``) each step
+    records its ``executor.*`` spans.
     """
 
     needs_logits = True
+    tracer = None
 
     def __init__(self, cfg: ModelConfig, params, num_blocks: int,
                  block_size: int, hw: HardwareConfig, tp: int = 1,
@@ -115,9 +117,14 @@ class RealExecutor:
     def step(self, prefills: list, decode: Optional[dict]):
         """Mixed step: decode batch first (pre-step KV state), then the
         prefill chunks. One combined cost-model time (weights stream once)."""
+        tr = self.tracer
+        if tr is not None:
+            tr.open("executor.step", tr.now())
         elapsed = self.cost.mixed_time(*_step_shape(prefills, decode))
         dec_logits = self._decode(decode) if decode else None
         pre_logits = [self._prefill(pf) for pf in prefills or ()]
+        if tr is not None:
+            tr.close()
         return pre_logits, dec_logits, elapsed
 
     def _tensor(self, x, dtype):
@@ -128,38 +135,61 @@ class RealExecutor:
             # chunked prefill: timing per chunk; compute happens once on the
             # final chunk (whole-prompt recompute — numerically identical)
             return None
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
         toks = self._tensor(pf["token_ids"], np.int64)[None]
+        table = (self._tensor(pf["block_table"], np.int64) if self.paged
+                 else None)
+        if tr is not None:
+            t = tr.span("executor.prepare", t, kind="prefill")
         logits, cache = api.prefill_fn(self.params, self.cfg,
                                        {"tokens": toks})
         if self.paged:
-            paged_model.write_prefill(
-                self.pool, cache, self._tensor(pf["block_table"], np.int64),
-                self.block_size)
+            paged_model.write_prefill(self.pool, cache, table,
+                                      self.block_size)
         else:
             cache = api.pad_cache(self.cfg, cache, self.max_model_len)
             for key, slab in self.cache.items():
                 slab[:, pf["slot"]] = cache[key][:, 0]
         self.prefill_computes += 1
-        return logits[0].float().cpu().numpy()
+        if tr is not None:
+            t = tr.span("executor.launch", t, kind="prefill")
+        out = logits[0].float().cpu().numpy()
+        if tr is not None:
+            tr.span("executor.to_host", t, kind="prefill")
+        return out
 
     def _decode(self, dec: dict):
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
         toks = self._tensor(dec["tokens"], np.int64)
         pos = self._tensor(dec["pos"], np.int64)
         if self.paged:
             bt = np.zeros((len(dec["slots"]), self.mb), np.int32)
             for i, table in enumerate(dec["block_tables"]):
                 bt[i, :len(table)] = table
+            index = self._tensor(bt, np.int32)
+        else:
+            index = self._tensor(dec["slots"], np.int64)
+        if tr is not None:
+            t = tr.span("executor.prepare", t, kind="decode")
+        if self.paged:
             logits, _ = paged_model.decode_step(
-                self.params, self.cfg, toks, pos, self.pool,
-                self._tensor(bt, np.int32))
+                self.params, self.cfg, toks, pos, self.pool, index)
         else:
             # gather the slots' caches, run decode_fn, scatter them back
-            slots = self._tensor(dec["slots"], np.int64)
-            cache = {k: slab.index_select(1, slots).to(self.cache_dtypes[k])
+            cache = {k: slab.index_select(1, index).to(self.cache_dtypes[k])
                      for k, slab in self.cache.items()}
             logits, cache = api.decode_fn(self.params, self.cfg, toks, cache,
                                           pos)
             for key, slab in self.cache.items():
-                slab.index_copy_(1, slots, cache[key].to(slab.dtype))
+                slab.index_copy_(1, index, cache[key].to(slab.dtype))
         self.decode_steps += 1
-        return logits.float().cpu().numpy()
+        if tr is not None:
+            t = tr.span("executor.launch", t, kind="decode")
+        out = logits.float().cpu().numpy()
+        if tr is not None:
+            tr.span("executor.to_host", t, kind="decode")
+        return out

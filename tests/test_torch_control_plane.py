@@ -62,6 +62,9 @@ _LINT_SCOPE = ("the linter's scope is the port's own package: a path part "
                "named repro_torch, not repro, so that the port's copied "
                "plane and its own engine code are linted")
 _LINT_CLI = "the CLI names the port and lints src/repro_torch by default"
+_STEP_SPANS = ("the step spans of engine/steptrace.py: off (one `is None` "
+               "test a site) unless a StepTracer is attached; they read the "
+               "host's clock and feed nothing back into scheduling")
 
 DEVIATIONS = {
     "launch/serve_cluster.py": [
@@ -84,6 +87,31 @@ DEVIATIONS = {
         (('(default: src/repro)', '(default: src/repro_torch)'), _LINT_CLI),
         (('args.paths or ["src/repro"]', 'args.paths or ["src/repro_torch"]'),
          _LINT_CLI),
+    ],
+    "engine/engine.py": [
+        (("        self._rng = np.random.default_rng(0)\n",
+          "        self._rng = np.random.default_rng(0)\n"
+          "        self.tracer = None\n"), _STEP_SPANS),
+        (("    def step(self, now: float) -> StepReport:\n",
+          "    def step(self, now: float) -> StepReport:\n"
+          "        tr = self.tracer\n"
+          "        if tr is not None:\n"
+          "            t0 = tr.now()\n"), _STEP_SPANS),
+        (("        pre_logits, dec_logits, elapsed = self.executor.step(\n",
+          "        if tr is not None:\n"
+          "            tr.begin(t0)\n"
+          "            tr.span('engine.schedule', t0)\n"
+          "        pre_logits, dec_logits, elapsed = self.executor.step(\n"),
+         _STEP_SPANS),
+        (("        tokens = 0\n",
+          "        tokens = 0\n"
+          "        if tr is not None:\n"
+          "            t1 = tr.now()\n"), _STEP_SPANS),
+        (("        return StepReport(\"mixed\", elapsed",
+          "        if tr is not None:\n"
+          "            tr.span('engine.sample', t1)\n"
+          "            tr.close()\n"
+          "        return StepReport(\"mixed\", elapsed"), _STEP_SPANS),
     ],
     "core/telemetry.py": [
         (("(repro.core.telemetry.METRIC_REGISTRY)",
