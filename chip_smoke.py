@@ -28,18 +28,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the paged path for the first two, the slot-state executor for the
      others. Each path's kernel launches must equal its attention layers x
      the model passes that ran them (none of either kernel for Mamba2, no
-     paged decode for the state paths). Then one decode step at the run's
-     last contexts, timed alone: its wall time, its device time and its
-     byte bound. Right after Mistral's path, on its params (not drawn
-     again) once its engine and pool are freed, the control plane serves
-     the same 4 prompts as streaming completions: ControlPlane (Slurm
-     simulation, Web Gateway, router) with two replicas of LLMEngine over
-     RealExecutor on the one card, stepping in turn. Every stream must
-     finish with its 16 tokens, equal to the engine's output tokens; both
-     replicas must have served; the launches must equal the layers x the
-     two executors' passes. It prints each request's virtual and wall-clock
-     TTFT and latency, and the run's wall time split into LLMEngine.step
-     (RealExecutor.step within it) and the rest, the plane's own host time.
+     paged decode for the state paths); Mistral's decodes must all be
+     replayed from CUDA graphs, the other paths' none. Then one decode step
+     at the run's last contexts, timed alone: its wall time, its device
+     time and its byte bound. Right after Mistral's path, on its params
+     (not drawn again) once its engine and pool are freed, the control
+     plane serves the same 4 prompts as streaming completions:
+     ControlPlane (Slurm simulation, Web Gateway, router) with two replicas
+     of LLMEngine over RealExecutor on the one card, stepping in turn.
+     Every stream must finish with its 16 tokens, equal to the engine's
+     output tokens; both replicas must have served; the launches must
+     equal the layers x the two executors' passes, and every decode be a
+     graph replay. It prints
+     each request's virtual and wall-clock TTFT and latency, and the run's
+     wall time split into LLMEngine.step (RealExecutor.step within it)
+     and the rest, the plane's own host time.
      Then the same plane serves the paper's Table-1 traffic, a burst of 100
      (benchmarks/table1.py's concurrent_burst), with the same checks and
      times as quantiles;
@@ -412,6 +415,14 @@ def expected_counts(cfg, ex):
             "flash_prefill": attention_layers(cfg) * ex.prefill_computes}
 
 
+def check_graphed(name, cfg, exs):
+    """A dense executor on the card replays every decode from its graphs;
+    the others replay none."""
+    want = [ex.decode_steps if cfg.family == "dense" else 0 for ex in exs]
+    got = [ex.graph_decodes for ex in exs]
+    check(got == want, f"{name}: graph decodes {got}, want {want}")
+
+
 def phase_path(cfg):
     """``cfg`` at full width and depth serves the 4 requests through the
     engine; returns the kernels' launches in that run and the params."""
@@ -445,7 +456,7 @@ def phase_path(cfg):
     n = sum(len(r.output_tokens) for r in reqs)
     print(f"path {name} " + json.dumps(
         {"wall_s": wall, "output_tokens": n, "tokens_per_s": n / wall,
-         "decode_steps": ex.decode_steps,
+         "decode_steps": ex.decode_steps, "graph_decodes": ex.graph_decodes,
          "prefill_computes": ex.prefill_computes, "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     check(all(r.status.value == "finished"
@@ -456,6 +467,7 @@ def phase_path(cfg):
           f"{ex.decode_steps} decode steps")
     check(counts == expected_counts(cfg, ex),
           f"{name}: launches {counts}, want {expected_counts(cfg, ex)}")
+    check_graphed(name, cfg, [ex])
     # the output itself: finite logits of the expected shape
     toks = torch.tensor(prompts[0], device="cuda")[None]
     logits, _ = api.prefill_fn(params, cfg, {"tokens": toks})
@@ -635,6 +647,7 @@ def phase_oracle(cfg):
                      f"tokens")
     want = expected_counts(cfg, engine.executor)
     check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
+    check_graphed(cfg.name, cfg, [engine.executor])
     return params, prompts, oracle
 
 
@@ -829,6 +842,7 @@ def phase_plane(cfg, params):
           f"{name}: the router did not use both replicas")
     want = plane_launches_want(cfg, [(0, 0)] * 2, exs)
     check(counts == want, f"{name} plane: launches {counts}, want {want}")
+    check_graphed(f"{name} plane", cfg, exs)
 
     # the paper's Table-1 traffic on GPU-L: a burst submitted at once,
     # prompts mostly sharing a prefix (the plane's queueing, routing among
@@ -865,6 +879,7 @@ def phase_plane(cfg, params):
     want = plane_launches_want(cfg, before, exs)
     check(burst_counts == want,
           f"{name} burst: launches {burst_counts}, want {want}")
+    check_graphed(f"{name} burst", cfg, exs)
     cp.shutdown()
     return counts, burst_counts
 

@@ -70,6 +70,13 @@ class RealExecutor:
     caches. ``decode_steps`` and ``prefill_computes`` count the model passes
     this executor ran. With a ``tracer`` (``engine/steptrace.py``) each step
     records its ``executor.*`` spans.
+
+    On a CUDA device, a dense model's decode is replayed from CUDA graphs
+    (``paged_model.DecodeGraphs``), one per padded batch size up to
+    ``max_slots``, captured here; every other family or device decodes
+    eagerly. ``graph_decodes`` counts the replayed decodes.
+    The graphed pool has one page more than the allocator's ``num_blocks``,
+    at index ``num_blocks``, which only the padding rows touch.
     """
 
     needs_logits = True
@@ -99,10 +106,17 @@ class RealExecutor:
         self.max_model_len = max_model_len
         self.cost = RooflineCost(cfg, hw, tp=tp)
         self.paged = cfg.family in ("dense", "moe")
+        self.graphs = None
         if self.paged:
-            self.pool = paged_model.init_pool(cfg, num_blocks, block_size,
-                                              device=self.device)
+            graphed = self.device.type == "cuda" and cfg.family == "dense"
+            self.pool = paged_model.init_pool(
+                cfg, num_blocks + 1 if graphed else num_blocks, block_size,
+                device=self.device)
             self.mb = -(-max_model_len // block_size)
+            if graphed:
+                self.graphs = paged_model.DecodeGraphs(
+                    params, cfg, self.pool, max_slots, self.mb,
+                    scratch=num_blocks)
         else:
             self.cache = api.init_cache(cfg, max_slots, max_model_len,
                                         dtype=torch.float32,
@@ -111,6 +125,7 @@ class RealExecutor:
                 k: v.dtype for k, v in api.init_cache(
                     cfg, 1, 1, dtype=leaf.dtype, device="meta").items()}
         self.decode_steps = 0
+        self.graph_decodes = 0
         self.prefill_computes = 0
 
     # ------------------------------------------------------------------
@@ -164,18 +179,28 @@ class RealExecutor:
         tr = self.tracer
         if tr is not None:
             t = tr.now()
-        toks = self._tensor(dec["tokens"], np.int64)
-        pos = self._tensor(dec["pos"], np.int64)
-        if self.paged:
-            bt = np.zeros((len(dec["slots"]), self.mb), np.int32)
-            for i, table in enumerate(dec["block_tables"]):
-                bt[i, :len(table)] = table
-            index = self._tensor(bt, np.int32)
+        s = len(dec["slots"])
+        graphs = self.graphs
+        bucket = (paged_model.decode_bucket(s, graphs.max_slots)
+                  if graphs is not None else 0)
+        if bucket:
+            graphs.stage(dec, bucket)
         else:
-            index = self._tensor(dec["slots"], np.int64)
+            toks = self._tensor(dec["tokens"], np.int64)
+            pos = self._tensor(dec["pos"], np.int64)
+            if self.paged:
+                bt = np.zeros((s, self.mb), np.int32)
+                for i, table in enumerate(dec["block_tables"]):
+                    bt[i, :len(table)] = table
+                index = self._tensor(bt, np.int32)
+            else:
+                index = self._tensor(dec["slots"], np.int64)
         if tr is not None:
             t = tr.span("executor.prepare", t, kind="decode")
-        if self.paged:
+        if bucket:
+            logits = graphs.replay(bucket, s)
+            self.graph_decodes += 1
+        elif self.paged:
             logits, _ = paged_model.decode_step(
                 self.params, self.cfg, toks, pos, self.pool, index)
         else:
@@ -188,7 +213,7 @@ class RealExecutor:
                 slab.index_copy_(1, index, cache[key].to(slab.dtype))
         self.decode_steps += 1
         if tr is not None:
-            t = tr.span("executor.launch", t, kind="decode")
+            t = tr.span("executor.launch", t, kind="decode", graph=bucket)
         out = logits.float().cpu().numpy()
         if tr is not None:
             tr.span("executor.to_host", t, kind="decode")

@@ -9,7 +9,9 @@ Every family but vlm and audio serves this way (those two need inputs that
 requests do not carry; see ``RealExecutor``).
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
-Prints each request's tokens and its wall-clock TTFT and latency.
+Prints each request's tokens and its wall-clock TTFT and latency, then a
+summary with the executor's decode passes and how many of them were
+replayed from a CUDA graph.
 """
 from __future__ import annotations
 
@@ -132,9 +134,12 @@ def main(argv=None):
                           "status": r.status.value, **t,
                           "tokens": r.output_tokens}))
     n = sum(len(r.output_tokens) for r in reqs)
+    ex = engine.executor
     print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
                       "device": str(device), "wall_s": wall,
-                      "output_tokens": n, "tokens_per_s": n / wall}))
+                      "output_tokens": n, "tokens_per_s": n / wall,
+                      "decode_steps": ex.decode_steps,
+                      "graph_decodes": ex.graph_decodes}))
     if args.profile:
         print(json.dumps(device_time_by_kernel(prof, wall)))
 

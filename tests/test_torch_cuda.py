@@ -311,6 +311,194 @@ def test_moe_engine_on_card_matches_cpu(gen):
     assert outs["cuda"] == outs["cpu"]
 
 
+# --------------------------------------------------------------------------
+# the dense decode replayed from CUDA graphs (paged_model.DecodeGraphs)
+# --------------------------------------------------------------------------
+
+GRAPH_CAP = 16                  # max_slots: buckets 1, 2, 4, 8 and 16
+GRAPH_BLOCKS, GRAPH_BS, GRAPH_LEN = 96, 16, 128      # tables of 8 pages
+GRAPH_CTX = 64                  # contexts up to 4 pages: 17 fit the pool
+
+
+def _card_executor(name="qwen3-1.7b", seed=7):
+    """A reduced RealExecutor on the card with every allocator page of its
+    paged pool (if it has one) filled with noise; returns (cfg, params,
+    executor)."""
+    from repro_torch import configs
+    from repro_torch.config import GPU_H100
+    from repro_torch.engine.executor import RealExecutor
+    from repro_torch.models import api
+    cfg = configs.get(name).reduced()
+    params = _to(api.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 "cpu"), "cuda")
+    ex = RealExecutor(cfg, params, num_blocks=GRAPH_BLOCKS,
+                      block_size=GRAPH_BS, hw=GPU_H100,
+                      max_model_len=GRAPH_LEN, max_slots=GRAPH_CAP,
+                      device="cuda")
+    if ex.paged:
+        _noise(ex.pool, seed)
+    return cfg, params, ex
+
+
+def _noise(pool, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    for leaf in pool.values():
+        leaf[:, :GRAPH_BLOCKS].normal_(generator=g)
+
+
+def _decode_batch(s, seed, vocab):
+    """The executor's decode input for s sequences on pages of their own,
+    none of them block 0 (an ordinary block that zero table entries name)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pages = [p for p in rng.permutation(GRAPH_BLOCKS).tolist() if p]
+    dec = {"slots": list(range(s)), "tokens": [], "pos": [],
+           "block_tables": []}
+    for _ in range(s):
+        ctx = int(rng.integers(1, GRAPH_CTX + 1))
+        n = -(-ctx // GRAPH_BS)
+        dec["block_tables"].append(pages[:n])
+        pages = pages[n:]
+        dec["tokens"].append(int(rng.integers(1, vocab)))
+        dec["pos"].append(ctx - 1)
+    return dec
+
+
+def _eager_decode(cfg, params, pool, dec):
+    """``paged_model.decode_step`` on ``pool`` as the eager path calls it."""
+    from repro_torch.engine import paged_model
+    s, mb = len(dec["slots"]), GRAPH_LEN // GRAPH_BS
+    bt = torch.zeros((s, mb), dtype=torch.int32)
+    for i, table in enumerate(dec["block_tables"]):
+        bt[i, :len(table)] = torch.tensor(table, dtype=torch.int32)
+    logits, _ = paged_model.decode_step(
+        params, cfg, torch.tensor(dec["tokens"], device="cuda"),
+        torch.tensor(dec["pos"], device="cuda"), pool, bt.cuda())
+    return logits.float().cpu()
+
+
+def _written(pool, before, dec):
+    """Which (layer, block, offset) slots of the allocator's pages differ
+    from ``before``, and which the batch's rows own at their positions."""
+    got = torch.zeros(pool["k"].shape[:3], dtype=torch.bool, device="cuda")
+    for name in ("k", "v"):
+        got |= (pool[name] != before[name]).flatten(3).any(-1)
+    want = torch.zeros_like(got)
+    for table, p in zip(dec["block_tables"], dec["pos"]):
+        want[:, table[p // GRAPH_BS], p % GRAPH_BS] = True
+    return got[:, :GRAPH_BLOCKS], want[:, :GRAPH_BLOCKS]
+
+
+@pytest.mark.parametrize("s", [3, 5, 13, 16])
+def test_graphed_decode_matches_eager(s, gen):
+    """Batches between buckets (3, 5, 13) and one on the cap (16): the
+    step's logits against the eager decode on the same pool, within bf16
+    rounding and with the same argmax, and the pool's live pages as the
+    eager decode leaves them."""
+    from repro_torch.engine import paged_model
+    cfg, params, ex = _card_executor()
+    assert sorted(ex.graphs.graphs) == [1, 2, 4, 8, 16]
+    assert ex.pool["k"].shape[1] == GRAPH_BLOCKS + 1
+    dec = _decode_batch(s, s, cfg.vocab_size)
+    eager = {k: v.clone() for k, v in ex.pool.items()}
+    _, out, _ = ex.step([], dec)
+    bucket = paged_model.decode_bucket(s, GRAPH_CAP)
+    assert bucket == {3: 4, 5: 8, 13: 16, 16: 16}[s]
+    assert (ex.decode_steps, ex.graph_decodes) == (1, 1)
+    ref = _eager_decode(cfg, params, eager, dec)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(torch.from_numpy(out), ref, atol=atol,
+                               rtol=rtol)
+    assert (out.argmax(-1) == ref.argmax(-1).numpy()).all()
+    for name in ("k", "v"):
+        _close(ex.pool[name][:, :GRAPH_BLOCKS],
+               eager[name][:, :GRAPH_BLOCKS], TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("sizes", [(8, 5), (3,), (16, 1, 9)],
+                         ids=["smaller_after_larger", "padded",
+                              "three_buckets"])
+def test_graphed_decode_writes_only_its_own_slots(sizes, gen):
+    """Each step, graphed (5 after 8 replays bucket 8 with three padding
+    rows where the last batch had sequences), changes the allocator's pages
+    only at the new token's slot of each real row: every page it does not
+    own, block 0 among them, and every other slot stay bitwise as they
+    were. The pool is refilled with noise before each step, so a row left
+    over from the last batch would show by what it writes."""
+    cfg, _, ex = _card_executor()
+    for i, s in enumerate(sizes):
+        _noise(ex.pool, 100 + i)
+        dec = _decode_batch(s, 10 * i + s, cfg.vocab_size)
+        before = {k: v.clone() for k, v in ex.pool.items()}
+        ex.step([], dec)
+        got, want = _written(ex.pool, before, dec)
+        assert torch.equal(got, want)
+        assert not bool(got[:, 0].any())
+    assert ex.graph_decodes == ex.decode_steps == len(sizes)
+
+
+def test_graph_decodes_counts_replays_only(gen):
+    """A prefill leaves ``graph_decodes`` where it was; each replay adds
+    one, and adds the layers' launches of the paged kernel, one a layer as
+    an eager decode counts them. The captures count none."""
+    from repro_torch.kernels.paged_attention import kernel as pa
+    before = pa.paged_attention.launches
+    cfg, _, ex = _card_executor()
+    # the one eager pass before the captures launches; the captures do not
+    assert pa.paged_attention.launches - before == cfg.num_layers
+    assert set(ex.graphs.launches.values()) == {cfg.num_layers}
+    prompt = list(range(3, 40))
+    ex.step([{"chunk": (0, len(prompt)), "is_last": True, "slot": 0,
+              "token_ids": prompt, "block_table": [1, 2, 3]}], None)
+    assert (ex.prefill_computes, ex.decode_steps, ex.graph_decodes) \
+        == (1, 0, 0)
+    counts = []
+    for s in (2, 16, 1):
+        n0 = pa.paged_attention.launches
+        ex.step([], _decode_batch(s, s, cfg.vocab_size))
+        counts.append((ex.decode_steps, ex.graph_decodes,
+                       pa.paged_attention.launches - n0))
+    n = cfg.num_layers
+    assert counts == [(1, 1, n), (2, 2, n), (3, 3, n)]
+
+
+def test_graphed_replays_back_to_back(gen):
+    """Two replays with no read of the logits between them: the second
+    ``stage`` waits for the first copy to leave the pinned buffer, so each
+    replay decodes its own batch, as the eager decode does on a copy of
+    the pool."""
+    from repro_torch.engine import paged_model
+    cfg, params, ex = _card_executor()
+    g = ex.graphs
+    decs = [_decode_batch(s, 50 + s, cfg.vocab_size) for s in (7, 5)]
+    eager = {k: v.clone() for k, v in ex.pool.items()}
+    outs = []
+    for dec in decs:
+        b = paged_model.decode_bucket(len(dec["slots"]), GRAPH_CAP)
+        g.stage(dec, b)
+        outs.append(g.replay(b, len(dec["slots"])).clone())
+    atol, rtol = TOL[torch.bfloat16]
+    for dec, out in zip(decs, outs):
+        ref = _eager_decode(cfg, params, eager, dec)
+        torch.testing.assert_close(out.cpu(), ref, atol=atol, rtol=rtol)
+        assert torch.equal(out.cpu().argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "mamba2-780m",
+                                  "recurrentgemma-9b"],
+                         ids=["moe", "ssm", "hybrid"])
+def test_other_families_capture_nothing(name, gen):
+    """moe (padding rows would compete for expert capacity) and the
+    slot-state families decode eagerly on the card: no graphs, the paged
+    pool at the allocator's size, ``graph_decodes`` 0."""
+    cfg, _, ex = _card_executor(name)
+    assert ex.graphs is None
+    if ex.paged:
+        assert ex.pool["k"].shape[1] == GRAPH_BLOCKS
+    ex.step([], _decode_batch(3, 3, cfg.vocab_size))
+    assert (ex.decode_steps, ex.graph_decodes) == (1, 0)
+
+
 def _serve_state(cfg, params, device, lens, n_new=6):
     """Greedy tokens of prompts of ``lens`` through the slot-state engine."""
     from repro_torch.config import GPU_H100

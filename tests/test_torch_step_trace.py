@@ -109,10 +109,13 @@ def test_counts_match_the_executor(models, name):
         == ex.decode_steps > 0
     assert sum(s.attrs["kind"] == "prefill" for s in launch) \
         == ex.prefill_computes == len(reqs)
-    # a pass's phases carry its kind and nothing else; the rest carry none
+    # a pass's phases carry its kind, a decode's launch also the bucket
+    # replayed from a CUDA graph (0, eager, on the CPU); the rest carry none
     for s in spans:
-        if s.name in ("executor.prepare", "executor.launch",
-                      "executor.to_host"):
+        if s.name == "executor.launch" and s.attrs["kind"] == "decode":
+            assert s.attrs == {"kind": "decode", "graph": 0}
+        elif s.name in ("executor.prepare", "executor.launch",
+                        "executor.to_host"):
             assert s.attrs.keys() == {"kind"}
         else:
             assert s.attrs == {}
