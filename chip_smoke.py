@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
-  1. the card's name and power limit; build both CUDA kernels from
+  1. the card's name and power limit; build the three CUDA kernels from
      src/repro_torch/csrc (timed);
   2. each kernel against its plain PyTorch version on the card at the
      serving paths' shapes (Mistral's, Qwen3-30B-A3B's QPK 8,
      RecurrentGemma-9B's D 256 / QPK 16 with and without its 2048 window,
-     Whisper-small's decoder at T 37 and 448), and at edge cases (every
+     Whisper-small's decoder at T 37 and 448; the grouped expert GEMM at
+     Qwen3-30B-A3B's widths, at a decode batch of 45 and prompts of 740,
+     2 048 and 6 061 tokens, with torch._grouped_mm's time as a yardstick
+     where this PyTorch has it), and at edge cases (every
      split of paged decode live, a dead tile row and the smallest head
      width in flash prefill),
      with its time, the plain version's time, its bound and, for flash
@@ -28,7 +31,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the paged path for the first two, the slot-state executor for the
      others. Each path's kernel launches must equal its attention layers x
      the model passes that ran them (none of either kernel for Mamba2, no
-     paged decode for the state paths); Mistral's decodes must all be
+     paged decode for the state paths), and the grouped expert GEMM's its
+     MoE layers x passes (Qwen3's alone); Mistral's decodes must all be
      replayed from CUDA graphs, the other paths' none. Then one decode step
      at the run's last contexts, timed alone: its wall time, its device
      time and its byte bound. Right after Mistral's path, on its params
@@ -99,8 +103,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      qwen3-1.7b: 3 steps, a rerun that resumes to 5, and the plain CPU
      launcher's 5 steps, whose last loss the resumed mesh run must repeat
      to rel 1e-4;
- 10. one JSON line of per-kernel numbers, all measured in this run but the
-     computed bounds, then the result line.
+ 10. one JSON line of per-kernel numbers (the grouped GEMM's at the decode
+     batch of 45, with a 740-token prompt's beside them), all measured in
+     this run but the computed bounds, then the result line.
 The port is imported from src/ next to this file; JAX is never imported.
 TF32 is off throughout.
 """
@@ -133,10 +138,19 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
 # f32, as the plain versions do; a bf16 output differs from the plain one by
 # its rounding, at most one bf16 step (2^-7 of |ref|), plus f32 arithmetic.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
+# the grouped expert GEMM in bf16: both versions round h to bf16 between its
+# two products, from f32 sums taken in another order, and an h element
+# rounded the other way moves an output by up to about 0.008 at its
+# scales (tests/test_torch_cuda.py, GROUPED_TOL)
+GROUPED_TOL = {torch.float32: TOL[torch.float32],
+               torch.bfloat16: (1e-2, 8e-3)}
 # the serving paths, in order, with their depth
 LAYERS = {"mistral-small-24b": 40, "qwen3-moe-30b-a3b": 48,
           "recurrentgemma-9b": 38, "mamba2-780m": 48}
 ORACLE_LAYERS = {"recurrentgemma-9b": 5}   # others: 2
+# the moe path's prompts, each past 64 tokens, where serving used to drop
+# routed rows
+MOE_PROMPT_LENS = (80, 300, 1000, 1500)
 AUDIO = "whisper-small"
 AUDIO_PROMPT = 37                          # decoder prompt tokens
 AUDIO_MAX_PROMPT = 448                     # the decoder's longest prompt
@@ -239,9 +253,9 @@ def cold(fn, args, live_bytes):
     return lambda: fn(*next(sets))
 
 
-def compare(out, ref):
+def compare(out, ref, tol=TOL):
     """Max abs error, and whether |out - ref| <= atol + rtol * |ref|."""
-    atol, rtol = TOL[out.dtype]
+    atol, rtol = tol[out.dtype]
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
     return float(err.max()), ok
@@ -338,12 +352,64 @@ def flash_case(gen, dtype, t, window, timed, h=32, kv=8, d=128):
     return row
 
 
+def grouped_case(gen, dtype, n, timed, e=128, k=8, d=2048, f=768):
+    """The grouped expert GEMM at Qwen3-30B-A3B's widths: n tokens' k
+    distinct experts each from a random router, their rows sorted by
+    expert. Its bound: the touched experts' weights, the rows in and out
+    once, and 2 x 3 x d x f operations a routed row, at the bf16 peak."""
+    from repro_torch.kernels.moe_grouped import kernel, ref
+    dev = "cuda"
+    pick = torch.rand(n, e, generator=gen, device=dev).topk(k, -1).indices
+    counts = torch.bincount(pick.reshape(-1), minlength=e)
+    offsets = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = counts.cumsum(0)
+    x = torch.randn(n * k, d, generator=gen, device=dev).to(dtype)
+    ws = [(torch.randn(e, a, b, generator=gen, device=dev) * a ** -0.5)
+          .to(dtype) for a, b in ((d, f), (d, f), (f, d))]
+    args = (x, offsets, *ws)
+    out = kernel.moe_grouped(*args)
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref.moe_grouped_ref(*args), GROUPED_TOL)
+    touched = int((counts > 0).sum())
+    row = {"case": f"moe_grouped {dtype} n={n} k={k} E={e} d={d} f={f} "
+                   f"experts_touched={touched}", "max_abs_err": err,
+           "ok": ok}
+    if timed:
+        live = touched * 3 * d * f * x.element_size()
+        n_bytes = live + 2 * size(x) + size(offsets)
+        n_ops = 2 * 3 * d * f * n * k
+        row["ms"] = cuda_ms(cold(kernel.moe_grouped, args, live))
+        row["device_ms"] = graph_ms(cold(kernel.moe_grouped, args, live))
+        row["plain_ms"] = cuda_ms(cold(ref.moe_grouped_ref, args, live))
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, dtype)
+        row["library_ms"] = None
+        gmm = getattr(torch, "_grouped_mm", None)
+        if gmm is not None and dtype == torch.bfloat16:
+            # yardstick only; the port never calls it
+            def library(x, offsets, wg, wu, wd):
+                ends = offsets[1:]
+                h = torch.nn.functional.silu(gmm(x, wg, offs=ends)) \
+                    * gmm(x, wu, offs=ends)
+                return gmm(h, wd, offs=ends)
+            try:
+                lib_out = library(*args)
+                row["library_err"] = compare(lib_out, out)[0]
+                row["library_ms"] = cuda_ms(cold(library, args, live))
+            except (RuntimeError, TypeError) as exc:
+                row["library_error"] = str(exc)[:200]
+    return row
+
+
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {
         "paged_attention": paged_case(gen, bf16, f32, timed=True),
         "flash_prefill": flash_case(gen, bf16, 1500, 0, timed=True),
+        # the MoE path's experts: Qwen3-30B-A3B's decode batch in the chat
+        # cell, then a mean chat prompt
+        "moe_grouped": grouped_case(gen, bf16, 45, True),
+        "moe_grouped prompt": grouped_case(gen, bf16, 740, True),
     }
     others = [paged_case(gen, f32, f32, True), paged_case(gen, bf16, bf16, True),
               # the main path's contexts at its last decode step
@@ -376,7 +442,12 @@ def phase_kernels():
               flash_case(gen, bf16, AUDIO_PROMPT, 0, True, h=12, kv=12,
                          d=64),
               flash_case(gen, bf16, AUDIO_MAX_PROMPT, 0, True, h=12, kv=12,
-                         d=64)]
+                         d=64),
+              # the experts at a whole prefill chunk and the chat replay's
+              # longest prompt; f32 once
+              grouped_case(gen, bf16, 2048, True),
+              grouped_case(gen, bf16, 6061, True),
+              grouped_case(gen, f32, 45, False)]
     for row in list(rows.values()) + others:
         print("kernel-check " + json.dumps(row))
         check(row["ok"], f"kernel disagrees with its plain version: {row}")
@@ -387,18 +458,27 @@ def phase_kernels():
 # phases 3 to 5: the serving paths
 # --------------------------------------------------------------------------
 
-def reset_counts():
+def kernel_wrappers():
+    """The hand-written kernels' wrappers, whose ``launches`` count their
+    calls, by kernel."""
     from repro_torch.kernels.flash_prefill import kernel as fp
+    from repro_torch.kernels.moe_grouped import kernel as mg
     from repro_torch.kernels.paged_attention import kernel as pa
-    pa.paged_attention.launches = 0
-    fp.flash_prefill.launches = 0
+    return {"paged_attention": pa.paged_attention,
+            "flash_prefill": fp.flash_prefill, "moe_grouped": mg.moe_grouped}
+
+
+NO_LAUNCHES = dict.fromkeys(("paged_attention", "flash_prefill",
+                             "moe_grouped"), 0)
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.flash_prefill import kernel as fp
-    from repro_torch.kernels.paged_attention import kernel as pa
-    return {"paged_attention": pa.paged_attention.launches,
-            "flash_prefill": fp.flash_prefill.launches}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def attention_layers(cfg):
@@ -409,10 +489,22 @@ def attention_layers(cfg):
 
 
 def expected_counts(cfg, ex):
-    """The launches a run of the engine's executor must have made."""
+    """The launches a run of the engine's executor must have made: a moe
+    path's grouped expert GEMM once a layer a model pass, which is what the
+    executor's ``moe_calls`` counts."""
     return {"paged_attention": cfg.num_layers * ex.decode_steps
             if ex.paged else 0,
-            "flash_prefill": attention_layers(cfg) * ex.prefill_computes}
+            "flash_prefill": attention_layers(cfg) * ex.prefill_computes,
+            "moe_grouped": ex.moe_calls}
+
+
+def check_moe_calls(name, cfg, ex):
+    """The executor counts a moe path's MoE layers once a layer a model
+    pass; any other path's, never."""
+    want = cfg.num_layers * (ex.decode_steps + ex.prefill_computes) \
+        if cfg.family == "moe" else 0
+    check(ex.moe_calls == want,
+          f"{name}: moe_calls {ex.moe_calls}, want {want}")
 
 
 def check_graphed(name, cfg, exs):
@@ -440,7 +532,7 @@ def phase_path(cfg):
     engine = drive.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    lens = drive.prompt_lens(cfg)
+    lens = MOE_PROMPT_LENS if cfg.family == "moe" else drive.prompt_lens(cfg)
     prompts = drive.make_prompts(cfg.vocab_size, lens, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -458,6 +550,7 @@ def phase_path(cfg):
         {"wall_s": wall, "output_tokens": n, "tokens_per_s": n / wall,
          "decode_steps": ex.decode_steps, "graph_decodes": ex.graph_decodes,
          "prefill_computes": ex.prefill_computes, "launches": counts,
+         "moe_calls": ex.moe_calls, "moe_rows": ex.moe_rows,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     check(all(r.status.value == "finished"
               and len(r.output_tokens) == drive.NEW_TOKENS for r in reqs),
@@ -465,6 +558,7 @@ def phase_path(cfg):
     check(ex.prefill_computes == len(lens) and ex.decode_steps > 0,
           f"{name}: {ex.prefill_computes} prefill computes, "
           f"{ex.decode_steps} decode steps")
+    check_moe_calls(name, cfg, ex)
     check(counts == expected_counts(cfg, ex),
           f"{name}: launches {counts}, want {expected_counts(cfg, ex)}")
     check_graphed(name, cfg, [ex])
@@ -632,11 +726,12 @@ def phase_oracle(cfg):
     engine = drive.build_engine(cfg, params, "cuda", num_blocks=1024,
                                 block_size=16, max_num_seqs=8,
                                 max_prefill_tokens=512, max_model_len=4096)
-    prompts = drive.make_prompts(cfg.vocab_size, drive.prompt_lens(cfg),
-                                 seed=1)
+    lens = MOE_PROMPT_LENS if cfg.family == "moe" else drive.prompt_lens(cfg)
+    prompts = drive.make_prompts(cfg.vocab_size, lens, seed=1)
     reset_counts()
     reqs, _ = drive.serve(engine, prompts, drive.NEW_TOKENS)
     counts = read_counts()
+    check_moe_calls(f"{cfg.name} oracle", cfg, engine.executor)
     oracle = [oracle_generate(cfg, params, p, drive.NEW_TOKENS)
               for p in prompts]
     same = [r.output_tokens == o for r, o in zip(reqs, oracle)]
@@ -794,7 +889,8 @@ def plane_launches_want(cfg, before, exs):
     return {"paged_attention": sum(cfg.num_layers * (ex.decode_steps - d)
                                    for ex, (_, d) in zip(exs, before)),
             "flash_prefill": sum(cfg.num_layers * (ex.prefill_computes - p)
-                                 for ex, (p, _) in zip(exs, before))}
+                                 for ex, (p, _) in zip(exs, before)),
+            "moe_grouped": 0}
 
 
 def phase_plane(cfg, params):
@@ -1066,7 +1162,7 @@ def phase_audio(cfg):
          drive.NEW_TOKENS, "tokens": toks, "tokens_per_s": len(toks) / wall,
          "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
-    want = {"paged_attention": 0, "flash_prefill": attention_layers(cfg)}
+    want = dict(NO_LAUNCHES, flash_prefill=attention_layers(cfg))
     check(counts == want, f"{cfg.name}: launches {counts}, want {want}")
     ctx = len(prompt) + drive.NEW_TOKENS + 1
     toks_t = torch.tensor([1], device="cuda")
@@ -1181,7 +1277,7 @@ def phase_train(cfg):
     check(len(resumed) == TRAIN_STEPS - TRAIN_CKPT and rel <= TRAIN_RESUME_RTOL,
           f"train: resumed run differs from the uninterrupted one by rel "
           f"{rel}")
-    check(counts == {"paged_attention": 0, "flash_prefill": 0},
+    check(counts == NO_LAUNCHES,
           f"train: kernel launches {counts} on the training path")
 
     # one step, timed and traced, on the state the run left
@@ -1244,7 +1340,7 @@ def phase_train_families():
               f"train {family}: card and CPU differ: {rows[family]}")
     counts = read_counts()
     print("train-families " + json.dumps(rows))
-    check(counts == {"paged_attention": 0, "flash_prefill": 0},
+    check(counts == NO_LAUNCHES,
           f"train families: kernel launches {counts}")
 
 
@@ -1331,7 +1427,7 @@ def phase_dryrun():
               f"the card, {counter.flops} in the dry run")
         check(counter.collectives.count == 0,
               f"dryrun {arch} {kind}: collectives on a 1 x 1 mesh")
-        check(read_counts() == {"paged_attention": 0, "flash_prefill": 0},
+        check(read_counts() == NO_LAUNCHES,
               f"dryrun {arch} {kind}: a kernel ran in the plain step")
     free_the_card()
     for arch, shape, mesh in DRYRUN_CELLS:
@@ -1449,7 +1545,7 @@ def phase_mesh_train(cfg, card):
         check(len(v) == MESH_STEPS - MESH_CKPT, f"mesh train {k}: {v}")
     check(max(diffs.values()) <= MESH_RTOL,
           f"mesh train: mesh and plain differ: {diffs}")
-    check(all(c == {"paged_attention": 0, "flash_prefill": 0}
+    check(all(c == NO_LAUNCHES
               for c in counts.values()),
           f"mesh train: kernel launches {counts}")
     return mesh_counts
@@ -1609,24 +1705,31 @@ def main():
     phase_mesh_train_cpu()
     print(f"mesh train phase: {time.perf_counter() - t0:.1f} s ({smi})")
 
+    # each kernel's source, the TPU kernel it replaces (none for the grouped
+    # GEMM, which the JAX package computes with plain einsums) and the path
+    # it serves first
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"
-                                   "kernel.py:28"),
+                                   "kernel.py:28", "mistral-small-24b"),
                "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill/"
-                                 "kernel.py:28")}
-    # `launches` is the main path's (Mistral's); every path's is beside it
+                                 "kernel.py:28", "mistral-small-24b"),
+               "moe_grouped": ("src/repro_torch/csrc/moe_grouped.cu", None,
+                               "qwen3-moe-30b-a3b")}
+
+    def timed(row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_ms")}
+    # `launches` is the kernel's path's; every path's is beside it
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep,
-                "launches": launches["mistral-small-24b"][name],
+                "replaces": rep, "path": path,
+                "launches": launches[path][name],
                 "launches_by_path": {p: c[name] for p, c in launches.items()},
-                "max_abs_err": rows[name]["max_abs_err"],
-                "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-                "bound_ms": rows[name]["bound_ms"],
-                "bound_by": rows[name]["bound_by"],
-                "library_ms": rows[name]["library_ms"],
-                "device_ms": rows[name]["device_ms"]}
-               for name, (src, rep) in sources.items()]
+                **timed(rows[name])}
+               for name, (src, rep, path) in sources.items()]
+    kernels[-1]["prompt"] = {"case": rows["moe_grouped prompt"]["case"],
+                             **timed(rows["moe_grouped prompt"])}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -68,8 +68,10 @@ class RealExecutor:
     slab holds those values exactly, being written from them) and runs
     ``decode_fn`` on it, as the reference's ``decode_fn`` runs on its own
     caches. ``decode_steps`` and ``prefill_computes`` count the model passes
-    this executor ran. With a ``tracer`` (``engine/steptrace.py``) each step
-    records its ``executor.*`` spans.
+    this executor ran. For moe, ``moe_calls`` counts the MoE layers those
+    passes ran (layers x passes) and ``moe_rows`` the rows they routed (n x
+    k a layer for a pass of n tokens). With a ``tracer``
+    (``engine/steptrace.py``) each step records its ``executor.*`` spans.
 
     On a CUDA device, a dense model's decode is replayed from CUDA graphs
     (``paged_model.DecodeGraphs``), one per padded batch size up to
@@ -127,6 +129,8 @@ class RealExecutor:
         self.decode_steps = 0
         self.graph_decodes = 0
         self.prefill_computes = 0
+        self.moe_calls = 0
+        self.moe_rows = 0
 
     # ------------------------------------------------------------------
     def step(self, prefills: list, decode: Optional[dict]):
@@ -144,6 +148,13 @@ class RealExecutor:
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x, dtype), device=self.device)
+
+    def _count_moe(self, n: int):
+        """Counts a pass of ``n`` tokens through a moe model's layers."""
+        if self.cfg.family == "moe":
+            self.moe_calls += self.cfg.num_layers
+            self.moe_rows += (self.cfg.num_layers * n
+                              * self.cfg.num_experts_per_tok)
 
     def _prefill(self, pf: dict):
         if not pf["is_last"]:
@@ -168,6 +179,7 @@ class RealExecutor:
             for key, slab in self.cache.items():
                 slab[:, pf["slot"]] = cache[key][:, 0]
         self.prefill_computes += 1
+        self._count_moe(toks.shape[1])
         if tr is not None:
             t = tr.span("executor.launch", t, kind="prefill")
         out = logits[0].float().cpu().numpy()
@@ -212,6 +224,7 @@ class RealExecutor:
             for key, slab in self.cache.items():
                 slab.index_copy_(1, index, cache[key].to(slab.dtype))
         self.decode_steps += 1
+        self._count_moe(s)
         if tr is not None:
             t = tr.span("executor.launch", t, kind="decode", graph=bucket)
         out = logits.float().cpu().numpy()

@@ -37,20 +37,29 @@ def init_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+WRITE_LAYERS = 8   # layers of a prefill cache cast to the pool's dtype at once
+
+
 def write_prefill(pool, cache, block_table, block_size: int):
     """Scatter one sequence's dense prefill cache into its pool blocks, in
     place.
 
     cache: {"k": (L, 1, T, KV, D)}; block_table: (nb,) int64 where
-    nb = ceil(T / block_size). T is padded up to a whole block.
+    nb = ceil(T / block_size). T is padded up to a whole block. The cast to
+    the pool's dtype is made ``WRITE_LAYERS`` layers at a time, so a long
+    prompt's step holds its cache and a few layers' cast copy beside the
+    pool, not a second copy of its whole cache.
     """
     nb = block_table.shape[0]
     for name in ("k", "v"):
         c = cache[name][:, 0]
         l, t, kvh, d = c.shape
-        c = F.pad(c, (0, 0, 0, 0, 0, nb * block_size - t))
-        pool[name][:, block_table] = c.reshape(l, nb, block_size, kvh, d).to(
-            pool[name].dtype)
+        c = F.pad(c, (0, 0, 0, 0, 0, nb * block_size - t)).reshape(
+            l, nb, block_size, kvh, d)
+        dst = pool[name]
+        for i in range(0, l, WRITE_LAYERS):
+            dst[i:i + WRITE_LAYERS, block_table] = \
+                c[i:i + WRITE_LAYERS].to(dst.dtype)
     return pool
 
 
@@ -60,8 +69,8 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):
     attention reads it, in place. Returns (logits (S, V), pool).
 
     Each layer's feed-forward is the SwiGLU MLP (dense, vlm) or, for moe,
-    ``moe.moe_block`` in serving mode (capacity_factor None: dropless at
-    decode batch sizes), its aux loss dropped."""
+    ``moe.ffn``: ``moe.moe_block`` in serving mode, dropless at every batch
+    size (on the card the grouped expert kernel), its aux loss dropped."""
     if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(f"paged decode serves dense, vlm and moe, "
                                   f"not {cfg.family!r}")
@@ -71,11 +80,14 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):
     blk = torch.gather(block_tables, 1, (pos // bs)[:, None])[:, 0].long()
     off = pos % bs
     ctx = (pos + 1).to(torch.int32)
+    # the rotary tables once a step, not twice a layer
+    tables = (cm.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+              if cfg.rope_theta > 0 else None)
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         pk, pv = pool["k"][i], pool["v"][i]
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = cm._qkv(lp["attn"], cfg, h, pos[:, None])
+        q, k, v = cm._qkv(lp["attn"], cfg, h, pos[:, None], tables=tables)
         pk[blk, off] = k[:, 0].to(pk.dtype)
         pv[blk, off] = v[:, 0].to(pv.dtype)
         a = pa_ops.paged_attention(q[:, 0], pk, pv, block_tables, ctx)
@@ -135,8 +147,10 @@ class DecodeGraphs:
     during it are taken back off ``paged_attention.launches``, and each
     replay adds them again: the count stays one per layer per decode.
 
-    Only for a family whose feed-forward is the same for every row: under
-    moe's capacity a padding row would compete with real rows for experts.
+    Only for dense so far: moe is not yet graphed. Its serving is dropless,
+    so a padding row would no longer take an expert's row from a real one;
+    it would only add routed rows (token 0's k experts) to the grouped
+    kernel's work.
     """
 
     def __init__(self, params, cfg: ModelConfig, pool, max_slots: int,

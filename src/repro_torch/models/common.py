@@ -153,16 +153,26 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., T, H, D); positions broadcastable to (..., T)."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+def rope_tables(positions, head_dim: int, theta: float):
+    """cos and sin of the rotary angles at ``positions`` (broadcastable to
+    (..., T)), each (..., T, 1, D/2): one pair serves every head of q and k
+    at those positions, in every layer of a pass."""
+    freqs = rope_freqs(head_dim, theta, positions.device)     # (D/2,)
     angles = positions[..., None].float() * freqs             # (..., T, D/2)
-    cos = torch.cos(angles)[..., None, :]                     # (..., T, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x, tables):
+    """x: (..., T, H, D) rotated by ``rope_tables``' (cos, sin)."""
+    cos, sin = tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., T, H, D); positions broadcastable to (..., T)."""
+    return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +207,10 @@ def _pinned(t):
     return t
 
 
-def _qkv(p, cfg: ModelConfig, x, positions, rope: bool = True):
+def _qkv(p, cfg: ModelConfig, x, positions, rope: bool = True,
+         tables=None):
+    """q, k, v of x, q and k rotated at ``positions``, or by ``tables``
+    (``rope_tables``) where a caller made them once for all its layers."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -205,8 +218,10 @@ def _qkv(p, cfg: ModelConfig, x, positions, rope: bool = True):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if rope and cfg.rope_theta > 0:  # rope_theta == 0 -> positions are learned
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if tables is None:
+            tables = rope_tables(positions, q.shape[-1], cfg.rope_theta)
+        q = rotate(q, tables)
+        k = rotate(k, tables)
     return q, k, v
 
 

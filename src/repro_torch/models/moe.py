@@ -1,11 +1,16 @@
 """Mixture-of-Experts decoder transformer (qwen3-moe, kimi-k2) in PyTorch:
 the counterpart of ``repro/models/moe.py``.
 
-Routing is the reference's sort-based capacity dispatch: each token's top-k
-entries are sorted by expert id, placed into an (E, C, d) buffer, and every
-expert runs as one batched product over its C rows (``torch.bmm``, plain
-products as XLA's were in the reference). An expert that receives more than
-C entries drops the excess, exactly as the reference does.
+Routing sorts each token's top-k entries by expert id, as the reference
+does. Training dispatches them as the reference's capacity dispatch: into an
+(E, C, d) buffer, every expert one batched product over its C rows
+(``torch.bmm``, plain products as XLA's were in the reference), an expert
+past C entries dropping the excess, exactly as the reference does. Serving
+is dropless: every token reaches all k of its experts at every batch size.
+On a CUDA device the sorted rows go through the hand-written grouped expert
+GEMM (``kernels/moe_grouped``), which computes each expert over its own rows
+only; elsewhere through the same buffer with C = n, which no expert can
+overflow.
 
 Attention is the dense transformer's; only each layer's feed-forward
 differs. The layer loops are ``transformer``'s, with this module's ``ffn``.
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.moe_grouped import ops as grouped
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -67,11 +73,12 @@ def init(cfg: ModelConfig, generator: torch.Generator | None, device="cuda"):
 # --------------------------------------------------------------------------
 
 def capacity(n: int, k: int, e: int, capacity_factor) -> int:
-    """Rows per expert for n tokens. Serving (None): cap = n for n <= 64,
-    which is dropless (a token's k experts are distinct), else twice the
-    even share, at least 16 and at most n. Otherwise GShard's n*k*cf/e."""
+    """Rows per expert for n tokens. Serving (None): n, which is dropless at
+    every n, since a token's k experts are distinct (the reference's own
+    setting for it is capacity_factor = e / k). Otherwise GShard's
+    n*k*cf/e, past which an expert drops entries."""
     if capacity_factor is None:
-        return n if n <= 64 else min(n, max(16, -((-n * k * 2) // e)))
+        return n
     return int(max(1, (n * k * capacity_factor) // e))
 
 
@@ -83,15 +90,19 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
+def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR,
+              aux_loss: bool = True):
     """x: (B, T, d) -> (y, aux_loss), as the reference's ``moe_block``.
 
-    capacity_factor=None is serving mode (see ``capacity``). Every shape
-    depends on n = B*T alone and nothing is read back to the host, so the
-    layer never stalls it. The output is the same on every run: kept
-    entries land in distinct rows of the buffer, and each token's k expert
-    outputs are added one after another in ascending expert id, in x's
-    dtype, the order in which the reference's scatter-add meets them.
+    capacity_factor=None is serving mode: dropless (see ``capacity``), on a
+    CUDA device through the grouped kernel. Every shape depends on n = B*T
+    alone and nothing is read back to the host, so the layer never stalls
+    it. The output is the same on every run: no two entries are summed into
+    one row of the dispatch, and each token's k expert outputs are added one
+    after another in ascending expert id, in x's dtype, the order in which
+    the reference's scatter-add meets them. ``aux_loss=False`` skips the
+    load-balancing loss (returned as None), which serving drops: its nine
+    launches a layer are host time on every step of an eager decode.
     """
     b, t, d = x.shape
     n = b * t
@@ -104,40 +115,25 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     top_p, top_i = top_k(probs, k)                            # (N, k)
     top_p = top_p / top_p.sum(-1, keepdim=True)               # renormalise
 
-    cap = capacity(n, k, e, capacity_factor)
     flat_e = cm.whole(top_i.reshape(-1))                      # (N*k,)
-
-    # load-balancing aux loss (Switch-style); counts are exact in f32
-    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, torch.ones(n * k, dtype=torch.float32, device=dev))
-    aux = e * torch.sum(counts / (n * k) * probs.mean(0)) \
-        * cfg.router_aux_loss_coef
+    aux = _aux_loss(cfg, probs, flat_e) if aux_loss else None
     flat_w = cm.whole(top_p.reshape(-1).to(x.dtype))
-    flat_tok = torch.arange(n * k, device=dev) // k            # (N*k,)
 
-    order = torch.argsort(flat_e, stable=True)
-    se, sw, stok = flat_e[order], flat_w[order], flat_tok[order]
-    # position of each entry within its expert's run
-    start = torch.searchsorted(se, torch.arange(e, device=dev), right=False)
-    pos = torch.arange(n * k, device=dev) - start[se]
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, e * cap)         # overflow row
-
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    # only dropped entries share a row: the last. index_select, not
-    # indexing: its backward sums a token's k copies in a fixed order
-    buf[slot] = cm.whole(xf).index_select(0, stok)
-    buf = buf[:-1].reshape(e, cap, d)
-    buf = cm.act_shard(buf, "expert", None, None)
-
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out = torch.bmm(h, p["w_down"])                           # (E, C, d)
-    out = cm.act_shard(out, "expert", None, None)
-
-    out_flat = cm.whole(out.reshape(e * cap, d))
-    gathered = torch.where(keep[:, None],
-                           out_flat.index_select(0, slot.clamp(max=e * cap - 1)),
-                           0.0) * sw[:, None]                 # sorted order
+    se, order = torch.sort(flat_e, stable=True)
+    sw = flat_w[order]
+    stok = order // k                       # entry i is token i // k's
+    # where each expert's run starts in the sorted entries (the last: N*k)
+    edges = torch.arange(e + 1, device=dev)
+    if capacity_factor is None and dev.type == "cuda":
+        gathered = grouped.moe_grouped(
+            xf.index_select(0, stok),
+            torch.searchsorted(se, edges, out_int32=True), p["w_gate"],
+            p["w_up"], p["w_down"])
+        gathered.mul_(sw[:, None])                            # sorted order
+    else:
+        start = torch.searchsorted(se, edges)
+        gathered = _dispatch(p, xf, se, sw, stok, start[:e],
+                             capacity(n, k, e, capacity_factor))
     # each token's k entries, by their sorted position: ascending expert id
     where = torch.empty_like(order)
     where[order] = torch.arange(n * k, device=dev)
@@ -150,6 +146,44 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR):
     if "shared" in p:
         y = y + cm.mlp(p["shared"], xf)
     return y.reshape(b, t, d), aux
+
+
+def _aux_loss(cfg: ModelConfig, probs, flat_e):
+    """The Switch-style load-balancing loss of one layer's routing; the
+    counts are exact in f32."""
+    e = cfg.num_experts
+    nk = flat_e.shape[0]
+    counts = torch.zeros(e, dtype=torch.float32, device=probs.device)
+    counts.index_add_(0, flat_e, torch.ones(nk, dtype=torch.float32,
+                                            device=probs.device))
+    return e * torch.sum(counts / nk * probs.mean(0)) \
+        * cfg.router_aux_loss_coef
+
+
+def _dispatch(p, xf, se, sw, stok, start, cap: int):
+    """The sorted entries through an (E, cap, d) buffer and one batched
+    product per weight: each entry's weighted expert output in sorted order,
+    zero for an entry past its expert's ``cap`` (dropped)."""
+    e, d = p["w_gate"].shape[0], xf.shape[1]
+    pos = torch.arange(se.shape[0], device=xf.device) - start[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, e * cap)         # overflow row
+
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    # only dropped entries share a row: the last. index_select, not
+    # indexing: its backward sums a token's k copies in a fixed order
+    buf[slot] = cm.whole(xf).index_select(0, stok)
+    buf = buf[:-1].reshape(e, cap, d)
+    buf = cm.act_shard(buf, "expert", None, None)
+
+    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    out = torch.bmm(h, p["w_down"])                           # (E, C, d)
+    out = cm.act_shard(out, "expert", None, None)
+
+    out_flat = cm.whole(out.reshape(e * cap, d))
+    return torch.where(keep[:, None],
+                       out_flat.index_select(0, slot.clamp(max=e * cap - 1)),
+                       0.0) * sw[:, None]
 
 
 # --------------------------------------------------------------------------
@@ -184,8 +218,9 @@ def forward_train(params, cfg: ModelConfig, tokens, remat: bool = True,
 
 def ffn(lp, cfg: ModelConfig, h):
     """One layer's feed-forward when serving: ``moe_block`` in serving
-    mode, its aux loss dropped."""
-    y, _ = moe_block(lp["moe"], cfg, h, capacity_factor=None)
+    mode (dropless; on the card the grouped kernel), with no aux loss."""
+    y, _ = moe_block(lp["moe"], cfg, h, capacity_factor=None,
+                     aux_loss=False)
     return y
 
 

@@ -280,14 +280,16 @@ def test_engine_on_card_matches_cpu(gen):
 
 
 def test_moe_engine_on_card_matches_cpu(gen):
-    """Reduced qwen3-moe served on the card (both kernels, MoE dispatch on
-    the device) gives the CPU port's greedy tokens, f32 pool; the 90-token
-    prompt prefills with the capacity below n."""
+    """Reduced qwen3-moe served on the card (all three kernels, MoE dispatch
+    on the device) gives the CPU port's greedy tokens, f32 pool; the
+    90-token prompt prefills past 64 tokens, dropless on both. The grouped
+    kernel launches once a layer a pass, as ``moe_calls`` counts."""
     from repro_torch import configs
     from repro_torch.config import GPU_H100
     from repro_torch.engine.engine import LLMEngine
     from repro_torch.engine.executor import RealExecutor
     from repro_torch.engine.request import Request, SamplingParams
+    from repro_torch.kernels.moe_grouped import kernel as grouped
     from repro_torch.models import api
     cfg = configs.get("qwen3-moe-30b-a3b").reduced()
     params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
@@ -304,10 +306,15 @@ def test_moe_engine_on_card_matches_cpu(gen):
             temperature=0.0, max_new_tokens=6)) for p in prompts]
         for r in reqs:
             eng.add_request(r, 0.0)
+        before = grouped.moe_grouped.launches
         now = 0.0
         while eng.has_work():
             now += max(eng.step(now).elapsed, 1e-4)
         outs[device] = [r.output_tokens for r in reqs]
+        passes = ex.decode_steps + ex.prefill_computes
+        assert ex.moe_calls == cfg.num_layers * passes
+        assert grouped.moe_grouped.launches - before == \
+            (ex.moe_calls if device == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
 
 
@@ -488,9 +495,9 @@ def test_graphed_replays_back_to_back(gen):
                                   "recurrentgemma-9b"],
                          ids=["moe", "ssm", "hybrid"])
 def test_other_families_capture_nothing(name, gen):
-    """moe (padding rows would compete for expert capacity) and the
-    slot-state families decode eagerly on the card: no graphs, the paged
-    pool at the allocator's size, ``graph_decodes`` 0."""
+    """moe (not yet graphed) and the slot-state families decode eagerly on
+    the card: no graphs, the paged pool at the allocator's size,
+    ``graph_decodes`` 0."""
     cfg, _, ex = _card_executor(name)
     assert ex.graphs is None
     if ex.paged:
@@ -566,9 +573,11 @@ def _moe_layer(cfg, gen):
 
 @pytest.mark.parametrize("case", ["dropless", "overflow", "all_ties"])
 def test_moe_block_on_card_matches_cpu(case, gen):
-    """moe_block on the card against its CPU result in f32: 16 tokens
-    (cap = n), 300 tokens with a router skewed so that expert 0 drops
-    entries, and a zero router that ties every expert (lowest ids win)."""
+    """Serving moe_block on the card (the grouped kernel) against its CPU
+    result (the buffer at C = n) in f32: 16 tokens, 300 tokens with a
+    router skewed so that expert 0 gets more entries than twice its even
+    share (which the old serving capacity dropped), and a zero router that
+    ties every expert (lowest ids win). Dropless on both."""
     from repro_torch import configs
     from repro_torch.models import moe
     cfg = configs.get("qwen3-moe-30b-a3b").reduced()
@@ -607,8 +616,8 @@ def test_moe_block_never_syncs_with_the_host(gen):
 
 
 def test_moe_block_bf16_is_deterministic(gen):
-    """bf16 at Qwen3-30B-A3B's widths over a 1500-token prefill (capacity
-    188 of 1500): two calls give bitwise the same output."""
+    """bf16 at Qwen3-30B-A3B's widths over a 1500-token prefill, dropless
+    through the grouped kernel: two calls give bitwise the same output."""
     from repro_torch import configs
     from repro_torch.models import moe
     cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"), num_layers=1)
@@ -620,6 +629,130 @@ def test_moe_block_bf16_is_deterministic(gen):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert bool(torch.isfinite(a.float()).all())
+
+
+# --------------------------------------------------------------------------
+# the grouped expert GEMM (kernels/moe_grouped) at Qwen3-30B-A3B's widths
+# --------------------------------------------------------------------------
+
+QWEN_MOE = dict(e=128, k=8, d=2048, f=768)
+# (atol, rtol) of the grouped kernel against its plain version. Both round
+# h = silu(x w_gate) * (x w_up) to bf16 between the two products, from f32
+# sums taken in another order; an h element that lands on the other side of
+# a rounding edge moves its outputs by one bf16 step of h (2^-8 |h|, |h| up
+# to about 10 at these scales) times a down weight (up to about 0.2): up to
+# about 0.008, besides the output's own rounding. f32 as the other kernels.
+GROUPED_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: (1e-2, 8e-3)}
+
+
+def _grouped_args(gen, n, dtype, e, k, d, f, counts=None):
+    """n tokens' k distinct experts each (a random router), their rows
+    sorted by expert, or with ``counts`` (E,) the rows each expert gets;
+    weights at the fan-in scales, one layer."""
+    dev = "cuda"
+    if counts is None:
+        pick = torch.rand(n, e, generator=gen, device=dev).topk(k, -1).indices
+        counts = torch.bincount(pick.reshape(-1), minlength=e)
+    counts = torch.as_tensor(counts, device=dev)
+    offsets = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = counts.cumsum(0)
+    r = int(offsets[-1])
+    x = torch.randn(r, d, generator=gen, device=dev).to(dtype)
+    wg = (torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5)
+    wu = (torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5)
+    wd = (torch.randn(e, f, d, generator=gen, device=dev) * f ** -0.5)
+    return x, offsets, wg.to(dtype), wu.to(dtype), wd.to(dtype)
+
+
+@pytest.mark.parametrize("n", [1, 45, 300, 6061])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_moe_grouped_kernel_matches_plain(n, dtype, gen):
+    """A decode row, the chat cell's decode batch, a prompt, and its replay's
+    longest prompt at k 8 of 128 experts (most experts empty at n 1), at
+    the published d and f; the launch count and the kernel's counters."""
+    from repro_torch.kernels.moe_grouped import kernel, ref
+    args = _grouped_args(gen, n, dtype, **QWEN_MOE)
+    x, offsets = args[0], args[1]
+    acc = kernel.counter(x.get_device())
+    acc.zero_()
+    before = kernel.moe_grouped.launches
+    out = kernel.moe_grouped(*args)
+    assert kernel.moe_grouped.launches == before + 1
+    _close(out, ref.moe_grouped_ref(*args), GROUPED_TOL[dtype])
+    counts = (offsets[1:] - offsets[:-1]).cpu()
+    touched = int((counts > 0).sum())
+    pad = int((-counts % kernel.BLOCK_M).sum())
+    assert acc.tolist() == [1, n * 8, touched, pad]
+
+
+@pytest.mark.parametrize("case", ["one_expert", "empty_first_and_last",
+                                  "ragged_tiles"])
+def test_moe_grouped_kernel_skewed_routing(case, gen):
+    """Every row on one expert (a skewed router: 45 tokens' 8 copies, 360
+    rows, on expert 5), experts 0 and 127 empty, and segments of 1, 63, 64,
+    65 and 129 rows across tile edges, in bf16 at the published widths."""
+    from repro_torch.kernels.moe_grouped import kernel, ref
+    e = QWEN_MOE["e"]
+    counts = [0] * e
+    if case == "one_expert":
+        counts[5] = 360
+    elif case == "empty_first_and_last":
+        counts = [3] * e
+        counts[0] = counts[-1] = 0
+    else:
+        for i, c in zip((1, 2, 3, 60, 126), (1, 63, 64, 65, 129)):
+            counts[i] = c
+    args = _grouped_args(gen, 0, torch.bfloat16, counts=counts, **QWEN_MOE)
+    out = kernel.moe_grouped(*args)
+    _close(out, ref.moe_grouped_ref(*args), GROUPED_TOL[torch.bfloat16])
+
+
+def test_moe_grouped_kernel_is_bitwise_repeatable_and_never_syncs(gen):
+    """Two calls over a prompt's rows give bitwise the same output, and a
+    call runs with the CUDA sync debugger set to raise."""
+    from repro_torch.kernels.moe_grouped import kernel
+    args = _grouped_args(gen, 740, torch.bfloat16, **QWEN_MOE)
+    a = kernel.moe_grouped(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = kernel.moe_grouped(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_moe_grouped_kernel_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.moe_grouped import kernel
+    x, offsets, wg, wu, wd = _grouped_args(gen, 4, torch.bfloat16, e=8, k=2,
+                                           d=128, f=64)
+    with pytest.raises(ValueError, match="int32"):
+        kernel.moe_grouped(x, offsets.long(), wg, wu, wd)
+    with pytest.raises(ValueError, match="alike"):
+        kernel.moe_grouped(x.float(), offsets, wg, wu, wd)
+    with pytest.raises(ValueError, match="multiples"):
+        kernel.moe_grouped(x[:, :96].contiguous(), offsets,
+                           wg[:, :96].contiguous(), wu[:, :96].contiguous(),
+                           wd[:, :, :96].contiguous())
+
+
+@pytest.mark.parametrize("n", [45, 300])
+def test_moe_block_at_published_widths_matches_cpu(n, gen):
+    """One layer of Qwen3-30B-A3B's MoE at its published widths in f32:
+    serving moe_block on the card (the grouped kernel) against the CPU's
+    buffer at C = n, at a decode batch and a prompt."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"), num_layers=1,
+                              param_dtype="float32")
+    p = _moe_layer(cfg, torch.Generator().manual_seed(3))
+    x = torch.randn(1, n, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(4))
+    y_cpu, _ = moe.moe_block(p, cfg, x, capacity_factor=None)
+    y, _ = moe.moe_block(_to(p, "cuda"), cfg, x.cuda(), capacity_factor=None)
+    _close(y.cpu(), y_cpu, TOL[torch.float32])
 
 
 def _to(tree, device):

@@ -110,4 +110,15 @@ def test_act_shard_sites_carry_the_references_names(arch):
         ttrain(tcfg, opt)(state, {**batch, "labels": torch.from_numpy(tok)})
     finally:
         tcm.set_activation_rules(None)
+    if jcfg.family == "moe":
+        # the one intended difference: the port serves dropless, so its
+        # prefill's expert buffers hold every one of the b * t tokens where
+        # the reference's serving capacity holds fewer
+        n, k, e = b * t, jcfg.num_experts_per_tok, jcfg.num_experts
+        ref_cap = min(n, max(16, -((-n * k * 2) // e)))
+        assert ref_cap < n
+        seen["repro"] = {
+            (names, (e, n) + shape[2:]
+             if names == ("expert", None, None) and shape[:2] == (e, ref_cap)
+             else shape) for names, shape in seen["repro"]}
     assert seen["repro_torch"] == seen["repro"]

@@ -14,6 +14,7 @@ from repro.kernels.paged_attention.kernel import paged_attention as jax_paged  #
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_ref  # noqa: E402
 from repro.models.common import chunked_causal_mha as jax_chunked  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as fp_ops  # noqa: E402
+from repro_torch.kernels.moe_grouped import ops as mg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 
@@ -104,7 +105,18 @@ def test_chunked_causal_mha_long_prompt_matches_jax(rng):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-@pytest.mark.parametrize("op", ["paged", "flash"])
+def _grouped_inputs(rng, counts, d=128, f=64, dtype=torch.float32):
+    e = len(counts)
+    offsets = torch.zeros(e + 1, dtype=torch.int32)
+    offsets[1:] = torch.tensor(counts).cumsum(0)
+    x = torch.from_numpy(rng.normal(size=(sum(counts), d)).astype(np.float32))
+    ws = [torch.from_numpy((rng.normal(size=(e, a, b)) * a ** -0.5)
+                           .astype(np.float32)) for a, b in
+          ((d, f), (d, f), (f, d))]
+    return (x.to(dtype), offsets, *(w.to(dtype) for w in ws))
+
+
+@pytest.mark.parametrize("op", ["paged", "flash", "grouped"])
 def test_cpu_dispatch_never_builds_the_kernel(op, rng, monkeypatch):
     """A CPU tensor takes the plain version: the kernel's wrapper is never
     reached and its launch count does not move."""
@@ -120,15 +132,20 @@ def test_cpu_dispatch_never_builds_the_kernel(op, rng, monkeypatch):
         pa_ops.paged_attention(*map(torch.from_numpy,
                                     _paged_inputs(rng, 2, 4, 2, 32, 4, 2)))
         assert kernel.paged_attention.launches == before
-    else:
+    elif op == "flash":
         from repro_torch.kernels.flash_prefill import kernel
         before = kernel.flash_prefill.launches
         x = torch.from_numpy(rng.normal(size=(1, 5, 2, 32)).astype(np.float32))
         fp_ops.flash_prefill(x, x, x)
         assert kernel.flash_prefill.launches == before
+    else:
+        from repro_torch.kernels.moe_grouped import kernel
+        before = kernel.moe_grouped.launches
+        mg_ops.moe_grouped(*_grouped_inputs(rng, [3, 0, 5, 1]))
+        assert kernel.moe_grouped.launches == before
 
 
-@pytest.mark.parametrize("op", ["paged", "flash"])
+@pytest.mark.parametrize("op", ["paged", "flash", "grouped"])
 def test_cpu_dispatch_of_bf16_never_builds_the_kernel(op, rng, monkeypatch):
     """bf16 CPU tensors (the main path's q) take the plain version too, with
     head widths the bf16 kernels would refuse, and keep their dtype."""
@@ -142,10 +159,67 @@ def test_cpu_dispatch_of_bf16_never_builds_the_kernel(op, rng, monkeypatch):
         q, pk, pv, bt, lens = map(torch.from_numpy,
                                   _paged_inputs(rng, 2, 4, 2, 48, 4, 2))
         out = pa_ops.paged_attention(q.bfloat16(), pk, pv, bt, lens)
-    else:
+    elif op == "flash":
         x = torch.from_numpy(rng.normal(size=(1, 5, 2, 80)).astype(np.float32))
         out = fp_ops.flash_prefill(*(x.bfloat16(),) * 3)
+    else:   # widths the kernel refuses (not multiples of 64)
+        out = mg_ops.moe_grouped(*_grouped_inputs(rng, [2, 4], d=48, f=40,
+                                                  dtype=torch.bfloat16))
     assert out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("counts", [[1] + [0] * 127, [3] * 128,
+                                    [360] + [0] * 127,
+                                    [0, 63, 64, 65, 0, 129, 1, 0],
+                                    [6061 * 8 // 128] * 128])
+def test_grouped_row_tiles_cover_every_routing(counts):
+    """The grid's row tiles, from the rows and experts alone, are at least
+    the tiles every expert's segment needs, whatever the routing."""
+    from repro_torch.kernels.moe_grouped import kernel
+    need = sum(-(-c // kernel.BLOCK_M) for c in counts)
+    assert need <= kernel.row_tiles(sum(counts), len(counts))
+
+
+def test_grouped_plain_version_is_each_rows_expert(rng):
+    """The plain grouped version: each row through its own expert's SwiGLU,
+    empty experts skipped, against a loop over rows."""
+    counts = [2, 0, 3, 0, 0, 1, 4, 0]
+    x, offsets, wg, wu, wd = _grouped_inputs(rng, counts)
+    out = mg_ops.moe_grouped(x, offsets, wg, wu, wd)
+    experts = [e for e, c in enumerate(counts) for _ in range(c)]
+    for r, e in enumerate(experts):
+        h = torch.nn.functional.silu(x[r] @ wg[e]) * (x[r] @ wu[e])
+        torch.testing.assert_close(out[r], h @ wd[e], **TOL)
+
+
+def test_grouped_plain_version_serves_the_dropless_block(rng):
+    """Reduced qwen3-moe, f32, 100 tokens: the routed rows sorted by expert
+    through the plain grouped version, weighted and summed per token, give
+    the serving block's output (the buffer at C = n) on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+    e, k, d, f = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, \
+        cfg.moe_d_ff
+    p = {"router": torch.from_numpy((rng.normal(size=(d, e)) * 0.1 * d ** -0.5)
+                                    .astype(np.float32))}
+    _, _, p["w_gate"], p["w_up"], p["w_down"] = _grouped_inputs(rng, [0] * e)
+    x = torch.from_numpy((rng.normal(size=(1, 100, d)) * 0.3)
+                         .astype(np.float32))
+    y, _ = moe.moe_block(p, cfg, x, capacity_factor=None)
+    xf = x[0]
+    probs = torch.softmax(xf @ p["router"], -1)
+    top_p, top_i = moe.top_k(probs, k)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    flat = top_i.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    offsets = torch.zeros(e + 1, dtype=torch.int32)
+    offsets[1:] = torch.bincount(flat, minlength=e).cumsum(0)
+    rows = mg_ops.moe_grouped(xf[order // k], offsets, p["w_gate"],
+                              p["w_up"], p["w_down"])
+    want = torch.zeros_like(xf)
+    want.index_add_(0, order // k, rows * top_p.reshape(-1)[order][:, None])
+    torch.testing.assert_close(y[0], want, **TOL)
 
 
 # --------------------------------------------------------------------------

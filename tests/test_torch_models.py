@@ -63,6 +63,24 @@ def test_apply_rope_matches_jax(theta, rng):
         _np(jcm.apply_rope(x, pos, theta)), **TOL)
 
 
+def test_rope_tables_made_once_rotate_as_apply_rope(rng):
+    """One ``rope_tables`` pair, made once for a pass, rotates q and k bit
+    for bit as ``apply_rope`` does for each alone; ``_qkv`` takes it."""
+    x = _t(rng.normal(size=(3, 1, 4, 32)).astype(np.float32))
+    pos = torch.tensor([[5], [0], [417]])
+    tables = tcm.rope_tables(pos, 32, 1_000_000.0)
+    for t in (x, x[:, :, :2].bfloat16()):
+        assert torch.equal(tcm.rotate(t, tables),
+                           tcm.apply_rope(t, pos, 1_000_000.0))
+    _, tcfg, _, tp = _jax_params("qwen3-1.7b")
+    lt = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    h = _t(rng.normal(size=(3, 1, tcfg.d_model)).astype(np.float32))
+    made = tcm.rope_tables(pos, tcfg.head_dim, tcfg.rope_theta)
+    for a, b in zip(tcm._qkv(lt, tcfg, h, pos),
+                    tcm._qkv(lt, tcfg, h, pos, tables=made)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["qwen3-1.7b", "smollm-135m"])
 def test_qkv_matches_jax(name, rng):
     """qwen3 has qk-norm, smollm does not."""

@@ -1,7 +1,9 @@
 """The port's MoE family against the JAX package on the same weights and
-inputs: ``moe_block`` in its serving and training capacities (with and
-without drops, and with tied router scores), whole prefill / decode logits,
-the paged decode step and the engine, on reduced configurations."""
+inputs: ``moe_block`` serving dropless (past 64 tokens held to the
+reference's own dropless setting, cap = n) and in its training capacity
+(with drops), with tied router scores, whole prefill / decode logits, the
+paged decode step and the engine (past 64 tokens held to the benchmark's
+dropless plain reference), on reduced configurations."""
 import functools
 
 import pytest
@@ -73,39 +75,52 @@ def _routing(cfg, p, x):
     return top_i, int(torch.bincount(top_i.reshape(-1)).max())
 
 
+def _old_serving_capacity(n, k, e):
+    """The serving capacity the reference uses above 64 tokens (and the port
+    used before it served dropless): twice the even share, at least 16."""
+    return n if n <= 64 else min(n, max(16, -((-n * k * 2) // e)))
+
+
 @pytest.mark.parametrize("case", ["serve_dropless", "serve_overflow",
                                   "train_cf125", "shared_expert"])
 def test_moe_block_matches_jax(case, rng):
-    """Serving at n <= 64 (cap = n), serving at n > 64 with a router skewed
-    so that expert 0 overflows its capacity, the training capacity 1.25
-    (drops too), and kimi-k2's shared expert."""
+    """Serving at n <= 64, serving at n > 64 with a router skewed so that
+    expert 0 gets more entries than the reference's serving capacity holds
+    (dropless: held to the reference's own dropless setting,
+    capacity_factor = E / k, i.e. cap = n), the training capacity 1.25
+    (drops), and kimi-k2's shared expert."""
     name = "kimi-k2-1t-a32b" if case == "shared_expert" else \
         "qwen3-moe-30b-a3b"
     jcfg, tcfg = _cfgs(name)
     p = _moe_weights(jcfg, rng, shared=case == "shared_expert")
     b, t = (2, 48) if case == "serve_overflow" else (2, 8)
     x = (rng.normal(size=(b, t, jcfg.d_model)) * 0.3).astype(np.float32)
+    n, k, e = b * t, jcfg.num_experts_per_tok, jcfg.num_experts
     cf = 1.25 if case == "train_cf125" else None
+    jcf = cf if cf is not None else e / k     # the reference's cap = n
     if case == "serve_overflow":
         x[..., 0] = 1.0
         p["router"][0, 0] = 20.0     # every token's first choice: expert 0
-    jy, jaux = _jmoe_block(p, jcfg, jnp.asarray(x), cf)
+    jy, jaux = _jmoe_block(p, jcfg, jnp.asarray(x), jcf)
     ty, taux = tmoe.moe_block(_tree(p), tcfg, _t(x), capacity_factor=cf)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(float(taux), float(jaux), **TOL)
-    n, k, e = b * t, jcfg.num_experts_per_tok, jcfg.num_experts
     cap = tmoe.capacity(n, k, e, cf)
     _, most = _routing(tcfg, p, x)
-    if case in ("serve_overflow", "train_cf125"):
+    if case == "train_cf125":
         assert cap < n and most > cap, "no entry was dropped"
     else:
         assert cap == n and most <= cap
+    if case == "serve_overflow":
+        assert most > _old_serving_capacity(n, k, e), \
+            "the old serving rule would have dropped nothing"
 
 
 def test_moe_block_all_ties_match_jax(rng):
     """A zero router ties every expert: the chosen experts are those of
-    ``lax.top_k`` (the lowest ids), and with n > 64 the capacity drops the
-    same entries, so the outputs agree."""
+    ``lax.top_k`` (the lowest ids). With n > 64 those experts get more
+    entries than the reference's serving capacity holds; serving is
+    dropless, held to the reference at capacity_factor = E / k (cap = n)."""
     jcfg, tcfg = _cfgs("qwen3-moe-30b-a3b")
     p = _moe_weights(jcfg, rng)
     p["router"][:] = 0.0
@@ -114,9 +129,10 @@ def test_moe_block_all_ties_match_jax(rng):
     probs = jnp.full((80, jcfg.num_experts), 1.0 / jcfg.num_experts)
     _, j_top = lax.top_k(probs, jcfg.num_experts_per_tok)
     np.testing.assert_array_equal(top_i.numpy(), np.asarray(j_top))
-    assert most > tmoe.capacity(80, jcfg.num_experts_per_tok,
-                                jcfg.num_experts, None)
-    jy, _ = _jmoe_block(p, jcfg, jnp.asarray(x), None)
+    k, e = jcfg.num_experts_per_tok, jcfg.num_experts
+    assert most > _old_serving_capacity(80, k, e)
+    assert most <= tmoe.capacity(80, k, e, None) == 80
+    jy, _ = _jmoe_block(p, jcfg, jnp.asarray(x), e / k)
     ty, _ = tmoe.moe_block(_tree(p), tcfg, _t(x), capacity_factor=None)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
 
@@ -143,6 +159,22 @@ def test_moe_dropless_serving_is_exact(rng):
             out[i] += w[j] * (h @ p["w_down"][e])
     np.testing.assert_allclose(y.numpy().reshape(-1, jcfg.d_model), out,
                                **TOL)
+
+
+def test_moe_serving_skips_only_the_aux_loss(rng):
+    """``ffn`` (serving) runs ``moe_block`` without its aux loss: the same
+    output bit for bit, in bf16 past the former capacity, and no loss."""
+    jcfg, tcfg = _cfgs("qwen3-moe-30b-a3b")
+    p = {k: v.to(torch.bfloat16) for k, v in _tree(_moe_weights(jcfg,
+                                                                 rng)).items()}
+    x = _t((rng.normal(size=(2, 48, jcfg.d_model)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16)
+    y, aux = tmoe.moe_block(p, tcfg, x, capacity_factor=None)
+    y2, aux2 = tmoe.moe_block(p, tcfg, x, capacity_factor=None,
+                              aux_loss=False)
+    assert aux is not None and aux2 is None
+    assert torch.equal(y, y2)
+    assert torch.equal(tmoe.ffn({"moe": p}, tcfg, x), y)
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,15 +252,36 @@ def _oracle_generate(cfg, params, prompt, n_new):
     return out
 
 
+def _reference_logits(tcfg, tree, prompt, served):
+    """The benchmark's plain reference (``perfbench/reference/decoder.py``,
+    dropless as the published model) at the reduced size: the logits that
+    predict each served token after the prompt."""
+    from perfbench.reference import decoder
+    cfg = {"family": "moe", "rms_norm_eps": tcfg.norm_eps,
+           "rope_theta": tcfg.rope_theta,
+           "num_attention_heads": tcfg.num_heads,
+           "num_key_value_heads": tcfg.num_kv_heads,
+           "head_dim": tcfg.head_dim, "num_hidden_layers": tcfg.num_layers,
+           "num_experts": tcfg.num_experts,
+           "num_experts_per_tok": tcfg.num_experts_per_tok}
+    seq = list(prompt) + list(served[:-1])
+    return decoder.logits_at(tree, cfg, [(seq, len(prompt) - 1,
+                                          len(served))])[0]
+
+
 def test_moe_paged_engine_matches_oracle(rng):
-    """The port's RealExecutor on the CPU serves reduced qwen3-moe to the
-    JAX oracle's greedy tokens. The 90-token prompt prefills with n > 64,
-    where the capacity is below n; chunked prefill (32-token chunks) and
-    mixed prefill + decode steps run too."""
+    """The port's RealExecutor on the CPU serves reduced qwen3-moe dropless.
+    The 11-token prompt gives the JAX oracle's greedy tokens. The 90-token
+    prompt repeats one token, so that in the first layer all 90 rows route
+    to the same k experts, past the reference's serving capacity (45 rows),
+    which drops entries where the published model drops none: its served
+    tokens are each the best of the benchmark's dropless plain reference,
+    whose logits they match. Chunked prefill (32-token chunks) and mixed
+    prefill + decode steps run too."""
     jcfg, jp, tcfg, tp = _setup("qwen3-moe-30b-a3b")
-    prompts = [list(rng.integers(1, jcfg.vocab_size, size=n))
-               for n in (11, 90)]
-    oracle = [_oracle_generate(jcfg, jp, p, 6) for p in prompts]
+    prompts = [list(rng.integers(1, jcfg.vocab_size, size=11)),
+               [int(rng.integers(1, jcfg.vocab_size))] * 90]
+    oracle = _oracle_generate(jcfg, jp, prompts[0], 6)
     ex = RealExecutor(tcfg, tp, num_blocks=64, block_size=16, hw=TPU_V5E,
                       max_model_len=256, device="cpu")
     eng = LLMEngine(tcfg, ex, num_blocks=64, block_size=16, max_num_seqs=8,
@@ -240,7 +293,14 @@ def test_moe_paged_engine_matches_oracle(rng):
         eng.add_request(r, now)
     while eng.has_work():
         now += max(eng.step(now).elapsed, 1e-4)
-    assert [r.output_tokens for r in reqs] == oracle
+    assert reqs[0].output_tokens == oracle
+    served = reqs[1].output_tokens
+    ref = _reference_logits(tcfg, tp, prompts[1], served)
+    assert len(served) == 6
+    assert ref.argmax(-1).tolist() == served
+    # f32 on both sides, the same arithmetic in another order
+    gap = ref.max(-1).values - ref.gather(1, torch.tensor(served)[:, None])[:, 0]
+    assert float(gap.max()) <= 1e-5
     assert ex.prefill_computes == 2 and ex.decode_steps > 0
     eng.allocator.check_invariants()
 

@@ -102,7 +102,7 @@ def test_serve_entry_point_does_not_fall_back_to_cpu(monkeypatch):
         serve.main(["--arch", "smollm-135m", "--real-compute"])
 
 
-@pytest.mark.parametrize("op", ["paged", "flash"])
+@pytest.mark.parametrize("op", ["paged", "flash", "grouped"])
 def test_kernel_wrappers_refuse_cpu_tensors(op):
     """The kernels' wrappers launch on a CUDA tensor or raise; they never
     compute a CPU tensor's result themselves."""
@@ -113,10 +113,17 @@ def test_kernel_wrappers_refuse_cpu_tensors(op):
         with pytest.raises(ValueError, match="CUDA"):
             paged_attention(x, pool, pool, torch.zeros(2, 1, dtype=torch.int32),
                             torch.ones(2, dtype=torch.int32))
-    else:
+    elif op == "flash":
         from repro_torch.kernels.flash_prefill.kernel import flash_prefill
         with pytest.raises(ValueError, match="CUDA"):
             flash_prefill(x[None], x[None], x[None])
+    else:
+        from repro_torch.kernels.moe_grouped.kernel import moe_grouped
+        w = torch.zeros(2, 64, 64)
+        with pytest.raises(ValueError, match="CUDA"):
+            moe_grouped(torch.zeros(3, 64), torch.tensor([0, 1, 3],
+                                                         dtype=torch.int32),
+                        w, w, w)
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.CONFIGS))
