@@ -32,12 +32,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      others. Each path's kernel launches must equal its attention layers x
      the model passes that ran them (none of either kernel for Mamba2, no
      paged decode for the state paths), and the grouped expert GEMM's its
-     MoE layers x passes (Qwen3's alone); Mistral's decodes must all be
-     replayed from CUDA graphs, the other paths' none. Then one decode step
-     at the run's last contexts, timed alone: its wall time, its device
-     time and its byte bound. Right after Mistral's path, on its params
-     (not drawn again) once its engine and pool are freed, the control
-     plane serves the same 4 prompts as streaming completions:
+     MoE layers x passes (Qwen3's alone); Mistral's and Qwen3's decodes
+     must all be replayed from CUDA graphs, the other paths' none. Then one
+     decode step at the run's last contexts, timed alone: its wall time,
+     its device time and its byte bound. Right after Mistral's path, on its
+     params (not drawn again) once its engine and pool are freed, the
+     control plane serves the same 4 prompts as streaming completions:
      ControlPlane (Slurm simulation, Web Gateway, router) with two replicas
      of LLMEngine over RealExecutor on the one card, stepping in turn.
      Every stream must finish with its 16 tokens, equal to the engine's
@@ -508,9 +508,10 @@ def check_moe_calls(name, cfg, ex):
 
 
 def check_graphed(name, cfg, exs):
-    """A dense executor on the card replays every decode from its graphs;
-    the others replay none."""
-    want = [ex.decode_steps if cfg.family == "dense" else 0 for ex in exs]
+    """A dense or moe executor on the card replays every decode from its
+    graphs; the others replay none."""
+    want = [ex.decode_steps if cfg.family in ("dense", "moe") else 0
+            for ex in exs]
     got = [ex.graph_decodes for ex in exs]
     check(got == want, f"{name}: graph decodes {got}, want {want}")
 

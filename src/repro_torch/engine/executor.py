@@ -73,12 +73,14 @@ class RealExecutor:
     k a layer for a pass of n tokens). With a ``tracer``
     (``engine/steptrace.py``) each step records its ``executor.*`` spans.
 
-    On a CUDA device, a dense model's decode is replayed from CUDA graphs
-    (``paged_model.DecodeGraphs``), one per padded batch size up to
-    ``max_slots``, captured here; every other family or device decodes
-    eagerly. ``graph_decodes`` counts the replayed decodes.
-    The graphed pool has one page more than the allocator's ``num_blocks``,
-    at index ``num_blocks``, which only the padding rows touch.
+    On a CUDA device, a dense or moe model's decode is replayed from CUDA
+    graphs (``paged_model.DecodeGraphs``), one per padded batch size up to
+    ``max_slots``, captured here; the slot-state families and the CPU
+    decode eagerly. ``graph_decodes`` counts the replayed decodes and
+    ``graph_padding_rows`` the padding rows they ran (the bucket less the
+    batch, each replay). The graphed pool has one page more than the
+    allocator's ``num_blocks``, at index ``num_blocks``, which only the
+    padding rows touch.
     """
 
     needs_logits = True
@@ -110,7 +112,7 @@ class RealExecutor:
         self.paged = cfg.family in ("dense", "moe")
         self.graphs = None
         if self.paged:
-            graphed = self.device.type == "cuda" and cfg.family == "dense"
+            graphed = self.device.type == "cuda"     # every paged family
             self.pool = paged_model.init_pool(
                 cfg, num_blocks + 1 if graphed else num_blocks, block_size,
                 device=self.device)
@@ -128,6 +130,7 @@ class RealExecutor:
                     cfg, 1, 1, dtype=leaf.dtype, device="meta").items()}
         self.decode_steps = 0
         self.graph_decodes = 0
+        self.graph_padding_rows = 0
         self.prefill_computes = 0
         self.moe_calls = 0
         self.moe_rows = 0
@@ -212,6 +215,7 @@ class RealExecutor:
         if bucket:
             logits = graphs.replay(bucket, s)
             self.graph_decodes += 1
+            self.graph_padding_rows += bucket - s
         elif self.paged:
             logits, _ = paged_model.decode_step(
                 self.params, self.cfg, toks, pos, self.pool, index)

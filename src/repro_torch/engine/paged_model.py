@@ -7,9 +7,9 @@ paged-attention op: the hand-written CUDA kernel on the card, its plain
 version on the CPU. The pool is updated in place where the JAX code returns
 a functionally updated copy (``.at[].set``); the functions still return it.
 
-``DecodeGraphs`` replays the dense decode step from CUDA graphs, one per
-padded batch size of ``decode_buckets``; the JAX package has no counterpart
-(XLA compiles its step whole).
+``DecodeGraphs`` replays the dense and moe decode step from CUDA graphs, one
+per padded batch size of ``decode_buckets``; the JAX package has no
+counterpart (XLA compiles its step whole).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import require as require_device
-from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import common as cm
 from repro_torch.models import moe, transformer
@@ -123,10 +123,11 @@ def decode_bucket(s: int, max_slots: int) -> int:
 
 
 class DecodeGraphs:
-    """``decode_step`` of a dense model captured in CUDA graphs, one per
-    bucket of ``decode_buckets(max_slots)``, so that a step costs the host
-    one copy and one graph launch instead of some 60 kernel launches a
-    layer.
+    """``decode_step`` of a dense or moe model captured in CUDA graphs, one
+    per bucket of ``decode_buckets(max_slots)``, so that a step costs the
+    host one copy and one graph launch instead of every layer's kernel
+    launches (some 60 a layer for dense; for moe, the router's, its sorts'
+    and the grouped expert kernel's beside those).
 
     The graphs read one static int32 buffer, for a bucket b laid out as
     tokens (b), positions (b) and block tables (b, mb), and write their
@@ -139,24 +140,31 @@ class DecodeGraphs:
     the pool that the allocator never hands out, so a padding row writes
     its K/V there and reads nothing else. ``stage`` fills every row of the
     bucket on every step, so a smaller batch never replays rows that an
-    earlier, larger one left behind. The paged-attention kernel reads
-    nothing back from the device (``kernels/paged_attention``), nor does any
-    other op of the step, which is what lets it be captured.
+    earlier, larger one left behind. Neither the paged-attention kernel
+    (``kernels/paged_attention``) nor the serving MoE layer
+    (``moe.moe_block``: shapes from n alone, the grouped kernel's expert
+    offsets read on the device) reads anything back from the device, nor
+    does any other op of the step, which is what lets it be captured.
 
-    A capture launches nothing, so the paged-attention wrapper's calls
-    during it are taken back off ``paged_attention.launches``, and each
-    replay adds them again: the count stays one per layer per decode.
+    In a moe model the padding rows are routed like any other: serving is
+    dropless, so they take no expert's row from a real one; each adds its k
+    routed rows (token 0's experts, the same in every padding row) to the
+    grouped kernel's work, and leaves the real rows' arithmetic as it is.
 
-    Only for dense so far: moe is not yet graphed. Its serving is dropless,
-    so a padding row would no longer take an expert's row from a real one;
-    it would only add routed rows (token 0's k experts) to the grouped
-    kernel's work.
+    A capture launches nothing, so the kernel wrappers' calls during it are
+    taken back off their ``launches`` (every wrapper in ``kernels.build``'s
+    ``COUNTED``), and each replay adds them again: each count stays one per
+    layer per decode.
+
+    Only the families with a paged KV cache that the executor serves (dense,
+    moe); the slot-state families (ssm, hybrid) are refused here, before
+    anything touches a device.
     """
 
     def __init__(self, params, cfg: ModelConfig, pool, max_slots: int,
                  mb: int, scratch: int):
-        if cfg.family != "dense":
-            raise ValueError(f"graphed decode serves dense, not "
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"graphed decode serves dense and moe, not "
                              f"{cfg.family!r}")
         dev = pool["k"].device
         self.params, self.cfg, self.pool = params, cfg, pool
@@ -174,22 +182,24 @@ class DecodeGraphs:
         self._dev.copy_(self._host)
         stream = torch.cuda.Stream(dev)
         # one eager pass on the capture stream first: cuBLAS's workspace for
-        # that stream and the kernel's shared-memory attribute are set up
-        # outside the capture
+        # that stream, the paged kernel's shared-memory attribute and the
+        # grouped kernel's device counter are set up outside the capture
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self._run(buckets[-1])
         torch.cuda.current_stream(dev).wait_stream(stream)
         mempool = torch.cuda.graph_pool_handle()
+        # per bucket, the calls of each counted wrapper that a replay makes
         self.graphs, self.launches = {}, {}
-        counted = pa_kernel.paged_attention
         for b in reversed(buckets):
             g = torch.cuda.CUDAGraph()
-            n0 = counted.launches
+            n0 = {fn: fn.launches for fn in build.COUNTED}
             with torch.cuda.graph(g, pool=mempool, stream=stream):
                 self._run(b)
-            self.graphs[b], self.launches[b] = g, counted.launches - n0
-            counted.launches = n0
+            self.graphs[b] = g
+            self.launches[b] = {fn: fn.launches - c for fn, c in n0.items()}
+            for fn, c in n0.items():
+                fn.launches = c
 
     def _views(self, b: int):
         d = self._dev
@@ -226,5 +236,6 @@ class DecodeGraphs:
         self._dev[:n].copy_(self._host[:n], non_blocking=True)
         self._copied.record()
         self.graphs[b].replay()
-        pa_kernel.paged_attention.launches += self.launches[b]
+        for fn, c in self.launches[b].items():
+            fn.launches += c
         return self.logits[:s]

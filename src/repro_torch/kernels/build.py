@@ -27,6 +27,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the wrappers whose ``launches`` count their calls that launched (``counted``)
+COUNTED: list = []
+
+
+def counted(fn):
+    """Registers a kernel wrapper in ``COUNTED`` and starts its
+    ``launches`` at 0; the wrapper adds 1 to it on each call that launched.
+    Code that launches the kernels without their wrappers keeps the counts
+    true over every registered wrapper (``engine/paged_model.DecodeGraphs``
+    replays them from CUDA graphs)."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def _nvcc() -> str:

@@ -64,6 +64,7 @@ def _entry():
     return lib, fn
 
 
+@build.counted
 def flash_prefill(q, k, v, window: int = 0):
     """q: (B, T, H, D); k/v: (B, T, KV, D) -> (B, T, H, D). Any T; all
     tensors contiguous and 16-byte aligned on one CUDA device, one dtype:
@@ -95,6 +96,3 @@ def flash_prefill(q, k, v, window: int = 0):
     build.check(lib, "flash_prefill", err)
     flash_prefill.launches += 1
     return out
-
-
-flash_prefill.launches = 0

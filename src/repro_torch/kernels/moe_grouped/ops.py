@@ -9,7 +9,7 @@ from repro_torch.kernels.moe_grouped import kernel
 from repro_torch.kernels.moe_grouped.ref import moe_grouped_ref
 
 
-def moe_grouped(x, offsets, w_gate, w_up, w_down):
+def moe_grouped(x, offsets, w_gate, w_up, w_down, out=None):
     if kernel_device(x) == "cpu":
-        return moe_grouped_ref(x, offsets, w_gate, w_up, w_down)
-    return kernel.moe_grouped(x, offsets, w_gate, w_up, w_down)
+        return moe_grouped_ref(x, offsets, w_gate, w_up, w_down, out)
+    return kernel.moe_grouped(x, offsets, w_gate, w_up, w_down, out)

@@ -8,7 +8,11 @@ Layouts:
   w_down   : (E, f, d)
 
 Each row's SwiGLU is computed in f32 and ``h`` rounded to x's dtype once, as
-the kernel rounds it; the output is accumulated in f32 and rounded once.
+the kernel rounds it; the output is accumulated in f32 and rounded once,
+into ``out`` if given (x itself may be: each expert's rows are read before
+they are written). ``out`` is here so that ``ops.moe_grouped`` has one
+signature on both devices: only the card's serving path passes it (the
+CPU's serving takes ``moe_block``'s (E, n, d) buffer instead).
 Reads the offsets back to the host: the plain version is for the CPU and for
 checks, never for the card's main path.
 """
@@ -18,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 
-def moe_grouped_ref(x, offsets, w_gate, w_up, w_down):
-    out = torch.empty_like(x)
+def moe_grouped_ref(x, offsets, w_gate, w_up, w_down, out=None):
+    if out is None:
+        out = torch.empty_like(x)
     bounds = offsets.tolist()
     for e in range(len(bounds) - 1):
         lo, hi = bounds[e], bounds[e + 1]

@@ -71,6 +71,7 @@ def _entry():
     return lib, fn
 
 
+@build.counted
 def paged_attention(q, pool_k, pool_v, block_tables, context_lens):
     """q: (S, H, D); pool_k/v: (NB, BS, KV, D); block_tables: (S, MB) int32;
     context_lens: (S,) int32. Returns (S, H, D) in q's dtype. All tensors
@@ -117,6 +118,3 @@ def paged_attention(q, pool_k, pool_v, block_tables, context_lens):
     build.check(lib, "paged_attention", err)
     paged_attention.launches += 1
     return out
-
-
-paged_attention.launches = 0

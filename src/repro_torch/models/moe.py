@@ -100,9 +100,12 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR,
     it. The output is the same on every run: no two entries are summed into
     one row of the dispatch, and each token's k expert outputs are added one
     after another in ascending expert id, in x's dtype, the order in which
-    the reference's scatter-add meets them. ``aux_loss=False`` skips the
-    load-balancing loss (returned as None), which serving drops: its nine
-    launches a layer are host time on every step of an eager decode.
+    the reference's scatter-add meets them. The kernel writes its output
+    over its sorted input rows and the k outputs are gathered one at a
+    time, so a long prompt's layer holds one (N*k, d) buffer of routed rows
+    at a time, not three. ``aux_loss=False`` skips the load-balancing loss
+    (returned as None), which serving drops: its nine launches a layer are
+    host time on every step of an eager decode.
     """
     b, t, d = x.shape
     n = b * t
@@ -125,10 +128,10 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR,
     # where each expert's run starts in the sorted entries (the last: N*k)
     edges = torch.arange(e + 1, device=dev)
     if capacity_factor is None and dev.type == "cuda":
+        rows = xf.index_select(0, stok)
         gathered = grouped.moe_grouped(
-            xf.index_select(0, stok),
-            torch.searchsorted(se, edges, out_int32=True), p["w_gate"],
-            p["w_up"], p["w_down"])
+            rows, torch.searchsorted(se, edges, out_int32=True),
+            p["w_gate"], p["w_up"], p["w_down"], out=rows)
         gathered.mul_(sw[:, None])                            # sorted order
     else:
         start = torch.searchsorted(se, edges)
@@ -137,10 +140,10 @@ def moe_block(p, cfg: ModelConfig, x, capacity_factor=CAPACITY_FACTOR,
     # each token's k entries, by their sorted position: ascending expert id
     where = torch.empty_like(order)
     where[order] = torch.arange(n * k, device=dev)
-    per_tok = gathered[where.reshape(n, k).sort(dim=-1).values]  # (N, k, d)
-    y = per_tok[:, 0]
+    at = where.reshape(n, k).sort(dim=-1).values              # (N, k)
+    y = gathered[at[:, 0]]
     for j in range(1, k):
-        y = y + per_tok[:, j]
+        y = y + gathered[at[:, j]]
 
     y = cm.alike(y, x)
     if "shared" in p:

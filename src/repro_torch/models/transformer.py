@@ -239,20 +239,30 @@ def prefill(params, cfg: ModelConfig, tokens, attention=None,
 def prefill_layers(params, cfg: ModelConfig, x, ffn, attention=None):
     """The layer stack of a prefill from the embeddings x (B, T, d), with
     ``ffn(lp, cfg, h)`` as each layer's feed-forward. Returns what
-    ``prefill`` returns."""
-    ks, vs = [], []
+    ``prefill`` returns.
+
+    Each layer's K/V is copied into the stacked cache (allocated at the
+    first layer) as soon as it is made and freed before the feed-forward
+    runs: a long prompt's cache is held once, and no layer's piece stays
+    inside a freed block of the feed-forward's larger temporaries, where it
+    would keep the rest of that block from serving a later allocation."""
+    cache = None
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, k, v = cm.attention_prefill(lp["attn"], cfg, h, attention)
+        if cache is None:
+            cache = {name: t.new_empty((cfg.num_layers,) + tuple(t.shape))
+                     for name, t in (("k", k), ("v", v))}
+        cache["k"][i] = k
+        cache["v"][i] = v
+        del k, v
         x = x + a
         h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(lp, cfg, h)
-        ks.append(k)
-        vs.append(v)
     x = cm.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = cm.unembed(params["embedding"], x)[:, 0]
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos, ffn=ffn):

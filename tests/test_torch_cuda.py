@@ -283,7 +283,8 @@ def test_moe_engine_on_card_matches_cpu(gen):
     """Reduced qwen3-moe served on the card (all three kernels, MoE dispatch
     on the device) gives the CPU port's greedy tokens, f32 pool; the
     90-token prompt prefills past 64 tokens, dropless on both. The grouped
-    kernel launches once a layer a pass, as ``moe_calls`` counts."""
+    kernel launches once a layer a pass, as ``moe_calls`` counts, the
+    card's decodes each replayed from a CUDA graph."""
     from repro_torch import configs
     from repro_torch.config import GPU_H100
     from repro_torch.engine.engine import LLMEngine
@@ -313,21 +314,26 @@ def test_moe_engine_on_card_matches_cpu(gen):
         outs[device] = [r.output_tokens for r in reqs]
         passes = ex.decode_steps + ex.prefill_computes
         assert ex.moe_calls == cfg.num_layers * passes
+        assert ex.graph_decodes == (ex.decode_steps if device == "cuda"
+                                    else 0)
         assert grouped.moe_grouped.launches - before == \
             (ex.moe_calls if device == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
 
 
 # --------------------------------------------------------------------------
-# the dense decode replayed from CUDA graphs (paged_model.DecodeGraphs)
+# the dense and moe decode replayed from CUDA graphs (paged_model.DecodeGraphs)
 # --------------------------------------------------------------------------
 
 GRAPH_CAP = 16                  # max_slots: buckets 1, 2, 4, 8 and 16
 GRAPH_BLOCKS, GRAPH_BS, GRAPH_LEN = 96, 16, 128      # tables of 8 pages
 GRAPH_CTX = 64                  # contexts up to 4 pages: 17 fit the pool
+# the graphed families: a dense model and a moe one, each reduced
+GRAPHED = pytest.mark.parametrize("name", ["qwen3-1.7b", "qwen3-moe-30b-a3b"],
+                                  ids=["dense", "moe"])
 
 
-def _card_executor(name="qwen3-1.7b", seed=7):
+def _card_executor(name, seed=7):
     """A reduced RealExecutor on the card with every allocator page of its
     paged pool (if it has one) filled with noise; returns (cfg, params,
     executor)."""
@@ -396,14 +402,17 @@ def _written(pool, before, dec):
     return got[:, :GRAPH_BLOCKS], want[:, :GRAPH_BLOCKS]
 
 
+@GRAPHED
 @pytest.mark.parametrize("s", [3, 5, 13, 16])
-def test_graphed_decode_matches_eager(s, gen):
+def test_graphed_decode_matches_eager(s, name, gen):
     """Batches between buckets (3, 5, 13) and one on the cap (16): the
     step's logits against the eager decode on the same pool, within bf16
     rounding and with the same argmax, and the pool's live pages as the
-    eager decode leaves them."""
+    eager decode leaves them. For moe, the padding rows' routed rows beside
+    the real ones leave the real rows' outputs as the eager layer gives
+    them."""
     from repro_torch.engine import paged_model
-    cfg, params, ex = _card_executor()
+    cfg, params, ex = _card_executor(name)
     assert sorted(ex.graphs.graphs) == [1, 2, 4, 8, 16]
     assert ex.pool["k"].shape[1] == GRAPH_BLOCKS + 1
     dec = _decode_batch(s, s, cfg.vocab_size)
@@ -417,22 +426,23 @@ def test_graphed_decode_matches_eager(s, gen):
     torch.testing.assert_close(torch.from_numpy(out), ref, atol=atol,
                                rtol=rtol)
     assert (out.argmax(-1) == ref.argmax(-1).numpy()).all()
-    for name in ("k", "v"):
-        _close(ex.pool[name][:, :GRAPH_BLOCKS],
-               eager[name][:, :GRAPH_BLOCKS], TOL[torch.bfloat16])
+    for leaf in ("k", "v"):
+        _close(ex.pool[leaf][:, :GRAPH_BLOCKS],
+               eager[leaf][:, :GRAPH_BLOCKS], TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("sizes", [(8, 5), (3,), (16, 1, 9)],
                          ids=["smaller_after_larger", "padded",
                               "three_buckets"])
-def test_graphed_decode_writes_only_its_own_slots(sizes, gen):
+@GRAPHED
+def test_graphed_decode_writes_only_its_own_slots(sizes, name, gen):
     """Each step, graphed (5 after 8 replays bucket 8 with three padding
     rows where the last batch had sequences), changes the allocator's pages
     only at the new token's slot of each real row: every page it does not
     own, block 0 among them, and every other slot stay bitwise as they
     were. The pool is refilled with noise before each step, so a row left
     over from the last batch would show by what it writes."""
-    cfg, _, ex = _card_executor()
+    cfg, _, ex = _card_executor(name)
     for i, s in enumerate(sizes):
         _noise(ex.pool, 100 + i)
         dec = _decode_batch(s, 10 * i + s, cfg.vocab_size)
@@ -444,38 +454,56 @@ def test_graphed_decode_writes_only_its_own_slots(sizes, gen):
     assert ex.graph_decodes == ex.decode_steps == len(sizes)
 
 
-def test_graph_decodes_counts_replays_only(gen):
-    """A prefill leaves ``graph_decodes`` where it was; each replay adds
-    one, and adds the layers' launches of the paged kernel, one a layer as
-    an eager decode counts them. The captures count none."""
+@GRAPHED
+def test_graph_decodes_counts_replays_only(name, gen):
+    """A prefill leaves ``graph_decodes`` and ``graph_padding_rows`` where
+    they were; each replay adds one decode, its bucket less its batch in
+    padding rows, and the layers' launches of the paged kernel and (moe)
+    of the grouped expert kernel, one a layer as an eager decode counts
+    them. The captures count none."""
+    from repro_torch.engine import paged_model
+    from repro_torch.kernels.moe_grouped import kernel as mg
     from repro_torch.kernels.paged_attention import kernel as pa
-    before = pa.paged_attention.launches
-    cfg, _, ex = _card_executor()
+    counted = (pa.paged_attention, mg.moe_grouped)
+    before = [fn.launches for fn in counted]
+    cfg, _, ex = _card_executor(name)
+    n = cfg.num_layers
+    per_pass = (n, n if cfg.family == "moe" else 0)
     # the one eager pass before the captures launches; the captures do not
-    assert pa.paged_attention.launches - before == cfg.num_layers
-    assert set(ex.graphs.launches.values()) == {cfg.num_layers}
+    assert [fn.launches - c for fn, c in zip(counted, before)] \
+        == list(per_pass)
+    # each bucket's replay adds what its capture took back, for every
+    # counted wrapper (``kernels.build.COUNTED``), and only those two
+    from repro_torch.kernels import build
+    want = {fn: c for fn, c in zip(counted, per_pass) if c}
+    for per_bucket in ex.graphs.launches.values():
+        assert set(per_bucket) == set(build.COUNTED)
+        assert {fn: c for fn, c in per_bucket.items() if c} == want
     prompt = list(range(3, 40))
     ex.step([{"chunk": (0, len(prompt)), "is_last": True, "slot": 0,
               "token_ids": prompt, "block_table": [1, 2, 3]}], None)
-    assert (ex.prefill_computes, ex.decode_steps, ex.graph_decodes) \
-        == (1, 0, 0)
-    counts = []
-    for s in (2, 16, 1):
-        n0 = pa.paged_attention.launches
+    assert (ex.prefill_computes, ex.decode_steps, ex.graph_decodes,
+            ex.graph_padding_rows) == (1, 0, 0, 0)
+    counts, padding = [], 0
+    for s in (3, 16, 1, 13):
+        n0 = [fn.launches for fn in counted]
         ex.step([], _decode_batch(s, s, cfg.vocab_size))
+        padding += paged_model.decode_bucket(s, GRAPH_CAP) - s
         counts.append((ex.decode_steps, ex.graph_decodes,
-                       pa.paged_attention.launches - n0))
-    n = cfg.num_layers
-    assert counts == [(1, 1, n), (2, 2, n), (3, 3, n)]
+                       tuple(fn.launches - c for fn, c in zip(counted, n0))))
+    assert counts == [(1, 1, per_pass), (2, 2, per_pass), (3, 3, per_pass),
+                      (4, 4, per_pass)]
+    assert ex.graph_padding_rows == padding == 1 + 0 + 0 + 3
 
 
-def test_graphed_replays_back_to_back(gen):
+@GRAPHED
+def test_graphed_replays_back_to_back(name, gen):
     """Two replays with no read of the logits between them: the second
     ``stage`` waits for the first copy to leave the pinned buffer, so each
     replay decodes its own batch, as the eager decode does on a copy of
     the pool."""
     from repro_torch.engine import paged_model
-    cfg, params, ex = _card_executor()
+    cfg, params, ex = _card_executor(name)
     g = ex.graphs
     decs = [_decode_batch(s, 50 + s, cfg.vocab_size) for s in (7, 5)]
     eager = {k: v.clone() for k, v in ex.pool.items()}
@@ -491,17 +519,15 @@ def test_graphed_replays_back_to_back(gen):
         assert torch.equal(out.cpu().argmax(-1), ref.argmax(-1))
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "mamba2-780m",
-                                  "recurrentgemma-9b"],
-                         ids=["moe", "ssm", "hybrid"])
+@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b"],
+                         ids=["ssm", "hybrid"])
 def test_other_families_capture_nothing(name, gen):
-    """moe (not yet graphed) and the slot-state families decode eagerly on
-    the card: no graphs, the paged pool at the allocator's size,
-    ``graph_decodes`` 0."""
+    """The slot-state families decode eagerly on the card: no graphs,
+    ``graph_decodes`` 0. moe left this test when its decode was graphed
+    (its serving is dropless, so padding rows take no real row's expert
+    capacity); the graphed tests above run it beside dense."""
     cfg, _, ex = _card_executor(name)
-    assert ex.graphs is None
-    if ex.paged:
-        assert ex.pool["k"].shape[1] == GRAPH_BLOCKS
+    assert ex.graphs is None and not ex.paged
     ex.step([], _decode_batch(3, 3, cfg.vocab_size))
     assert (ex.decode_steps, ex.graph_decodes) == (1, 0)
 
@@ -736,6 +762,24 @@ def test_moe_grouped_kernel_refuses_what_it_does_not_take(gen):
         kernel.moe_grouped(x[:, :96].contiguous(), offsets,
                            wg[:, :96].contiguous(), wu[:, :96].contiguous(),
                            wd[:, :, :96].contiguous())
+    with pytest.raises(ValueError, match="out"):
+        kernel.moe_grouped(x, offsets, wg, wu, wd, out=x[1:])
+
+
+def test_moe_grouped_kernel_writes_over_its_input_rows(gen):
+    """``out=x``, as the serving layer calls it: bitwise the output of a
+    call into a fresh tensor, written into x's own memory, and one launch
+    counted."""
+    from repro_torch.kernels.moe_grouped import kernel
+    args = _grouped_args(gen, 300, torch.bfloat16, **QWEN_MOE)
+    want = kernel.moe_grouped(*args)
+    x = args[0].clone()
+    before = kernel.moe_grouped.launches
+    got = kernel.moe_grouped(x, *args[1:], out=x)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == x.data_ptr()
+    assert torch.equal(got, want)
+    assert kernel.moe_grouped.launches == before + 1
 
 
 @pytest.mark.parametrize("n", [45, 300])

@@ -1,7 +1,8 @@
-"""The graphed dense decode's host side on the CPU: the bucket ladder
-(``paged_model.decode_buckets`` / ``decode_bucket``), and a CPU executor,
-which captures nothing and keeps the allocator's pool. The graphs
-themselves are tested on the card (``tests/test_torch_cuda.py``)."""
+"""The graphed dense and moe decode's host side on the CPU: the bucket
+ladder (``paged_model.decode_buckets`` / ``decode_bucket``), the families
+``DecodeGraphs`` refuses, and a CPU executor, which captures nothing and
+keeps the allocator's pool. The graphs themselves are tested on the card
+(``tests/test_torch_cuda.py``)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -62,3 +63,15 @@ def test_cpu_executor_captures_nothing(name):
     assert ex.decode_steps > 0 and ex.graph_decodes == 0
     assert tuple(ex.pool["k"].shape) == (cfg.num_layers, 64, 16,
                                          cfg.num_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b"],
+                         ids=["ssm", "hybrid"])
+def test_graphs_refuse_the_slot_state_families(name):
+    """The slot-state families have no paged pool to capture against:
+    ``DecodeGraphs`` refuses them by their family, before it reads the pool
+    or touches a device (it is handed none here)."""
+    cfg = configs.get(name).reduced()
+    with pytest.raises(ValueError, match=cfg.family):
+        paged_model.DecodeGraphs(None, cfg, None, max_slots=4, mb=8,
+                                 scratch=0)

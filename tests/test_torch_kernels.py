@@ -168,6 +168,19 @@ def test_cpu_dispatch_of_bf16_never_builds_the_kernel(op, rng, monkeypatch):
     assert out.dtype == torch.bfloat16
 
 
+def test_every_kernel_wrapper_is_counted():
+    """Each hand-written kernel's wrapper is in ``build.COUNTED`` once, with
+    an integer ``launches``: a graph capture takes back and a replay adds
+    the calls of every wrapper there, so a kernel missing from it would
+    read no launches from a replayed decode."""
+    from repro_torch.kernels import build
+    wrappers = [fp_ops.kernel.flash_prefill, mg_ops.kernel.moe_grouped,
+                pa_ops.kernel.paged_attention]
+    assert sorted(build.COUNTED, key=id) == sorted(wrappers, key=id)
+    assert {fn.__name__ for fn in build.COUNTED} == set(build.SOURCES)
+    assert all(isinstance(fn.launches, int) for fn in build.COUNTED)
+
+
 @pytest.mark.parametrize("counts", [[1] + [0] * 127, [3] * 128,
                                     [360] + [0] * 127,
                                     [0, 63, 64, 65, 0, 129, 1, 0],
@@ -190,6 +203,16 @@ def test_grouped_plain_version_is_each_rows_expert(rng):
     for r, e in enumerate(experts):
         h = torch.nn.functional.silu(x[r] @ wg[e]) * (x[r] @ wu[e])
         torch.testing.assert_close(out[r], h @ wd[e], **TOL)
+
+
+def test_grouped_plain_version_writes_over_its_input_rows(rng):
+    """``out=x``: each expert's rows are read before they are written, so
+    the result equals a call into a fresh tensor, in x's own memory."""
+    x, offsets, wg, wu, wd = _grouped_inputs(rng, [2, 0, 3, 0, 0, 1, 4, 0])
+    want = mg_ops.moe_grouped(x, offsets, wg, wu, wd)
+    got = mg_ops.moe_grouped(x, offsets, wg, wu, wd, out=x)
+    assert got is x
+    assert torch.equal(got, want)
 
 
 def test_grouped_plain_version_serves_the_dropless_block(rng):

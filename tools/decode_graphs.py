@@ -1,8 +1,10 @@
-"""Readings of the dense decode's CUDA graphs
-(``repro_torch.engine.paged_model.DecodeGraphs``) on the card, each in one
-process. The benchmark runs none of it.
+"""Readings of the paged decode's CUDA graphs
+(``repro_torch.engine.paged_model.DecodeGraphs``, dense and moe) on the
+card, each in one process. The benchmark runs none of it.
 
     python3 tools/decode_graphs.py share --workload mistral-24b.chat \
+        --seed <n> --seconds 51
+    python3 tools/decode_graphs.py share --workload qwen3-moe.chat \
         --seed <n> --seconds 51
         one untraced window of the cell, built, warmed and served as the
         benchmark does, with the program's step spans on: the share of the
@@ -14,13 +16,17 @@ process. The benchmark runs none of it.
         decode pass), and the cell's end-to-end metrics
     python3 tools/decode_graphs.py padding --workload mistral-24b.chat \
         --seed <n> --sizes 45:48,64 65:80,96 200:224,256
+    python3 tools/decode_graphs.py padding --workload qwen3-moe.chat \
+        --seed <n> --sizes 18:24 30:32
         the cell's model and pool alone, its graphs built as the executor
         builds them: for each ``s:buckets``, a batch of s sequences at one
         context replayed in each bucket and decoded eagerly; the step's
         device time (CUDA events) and the paged kernels' (``paged_split``
         and ``paged_combine``, from ``torch.profiler``) with their share of
         the byte bound of the s real rows, as the benchmark's
-        ``paged_attention_roofline`` counts it
+        ``paged_attention_roofline`` counts it; for moe, beside them the
+        grouped expert kernel's device time (``grouped_bf16`` /
+        ``grouped_f32``), which a bucket's padding rows add to
 
 Each prints one JSON line per reading.
 """
@@ -41,6 +47,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from perfbench import harness, spec, stepspans, yardstick  # noqa: E402
+from perfbench.metrics.moe_grouped_roofline import KERNELS  # noqa: E402
 from repro_torch.engine import paged_model  # noqa: E402
 
 
@@ -103,8 +110,9 @@ def _device_ms(fn, n):
     return a.elapsed_time(z) / n
 
 
-def _paged_ms(fn, n):
-    """Device ms a call of ``fn`` spends in the paged kernels."""
+def _kernel_ms(fn, n, groups):
+    """Device ms a call of ``fn`` spends in each group of kernels (a tuple
+    of name fragments), in the order of ``groups``."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -112,10 +120,11 @@ def _paged_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                if e.device_type() == torch.autograd.DeviceType.CUDA
-                and any(k in e.name() for k in harness.PAGED_KERNELS))
-    return total / 1e6 / n
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return [sum(e.duration_ns() for e in events
+                if any(k in e.name() for k in names)) / 1e6 / n
+            for names in groups]
 
 
 def padding(setup, sizes, ctx, repeats):
@@ -127,6 +136,9 @@ def padding(setup, sizes, ctx, repeats):
     graphs = paged_model.DecodeGraphs(setup.params, cfg, pool, cap, mb,
                                       scratch=nb)
     torch.cuda.synchronize()
+    groups = [harness.PAGED_KERNELS]
+    if cfg.family == "moe":
+        groups.append(KERNELS)
     out(tool="padding", construct_s=time.perf_counter() - t,
         graphs=sorted(graphs.graphs))
     rng = np.random.default_rng(setup.seed)
@@ -152,11 +164,12 @@ def padding(setup, sizes, ctx, repeats):
             if name != "eager":
                 graphs.stage(dec, b)
             step = _device_ms(fn, repeats)
-            paged = _paged_ms(fn, repeats)
+            paged, *grouped = _kernel_ms(fn, repeats, groups)
             out(tool="padding", s=s, ctx=ctx, run=name, rows=b,
                 step_device_ms=step, paged_device_ms=paged,
                 paged_bound_ms=bound_ms,
-                paged_roofline=100.0 * bound_ms / paged)
+                paged_roofline=100.0 * bound_ms / paged,
+                **({"grouped_device_ms": grouped[0]} if grouped else {}))
 
 
 def _sizes(text):

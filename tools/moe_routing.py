@@ -6,14 +6,19 @@ process. The benchmark runs none of it.
         --seconds 51
 
 one untraced run of the cell, built, warmed and served as the benchmark
-does, with one accumulator for decode passes and one for prefills put in
-place of the kernel's own (each pass swaps its own in first: no
-synchronisation, nothing read inside the window). Both are read once, after
-the window, over the lead-in and the window: per kind the calls (one a MoE
-layer a pass), the routed rows (n x k a call), the experts with at least one
-row per call, and the padding share (the rows the kernel's 64-row tiles
-add, over all rows it computes); beside them the executor's host counters
-``moe_calls`` and ``moe_rows``, which the two sums must equal, and the
+does, with the kernel's one accumulator split by pass on the card: a copy
+of it is taken before each decode pass and each prefill, and the
+difference after the pass is added to that kind's tally (no
+synchronisation, nothing read inside the window; a CUDA graph's replay adds
+to the accumulator whose address its capture froze, so the accumulator
+stays in place). Both tallies are read once, after the window, over the
+lead-in and the window: per kind the calls (one a MoE layer a pass), the
+routed rows (n x k a call), the experts with at least one row per call,
+and the padding share (the rows the kernel's 64-row tiles add, over all
+rows it computes); beside them the executor's host counters ``moe_calls``
+and ``moe_rows`` and its ``graph_padding_rows``: the calls must equal
+``moe_calls``, and the rows ``moe_rows`` with each padding row of a
+replayed decode's bucket routed too (its k rows in every layer); then the
 cell's end-to-end metrics.
 
 Prints one JSON line per reading.
@@ -41,19 +46,20 @@ def out(**kw):
 
 
 def split_by_pass(executor, device: int) -> dict:
-    """Gives decode passes and prefills an accumulator each: before a pass,
-    its kind's is put where the kernel looks for the device's."""
-    accs = {kind: torch.zeros(len(kernel.COUNTERS), dtype=torch.int64,
-                              device=f"cuda:{device}")
-            for kind in ("decode", "prefill")}
+    """Gives decode passes and prefills a tally each, on the card: around a
+    pass, the kernel's accumulator's growth is added to its kind's."""
+    acc = kernel.counter(device)
+    tallies = {kind: torch.zeros_like(acc) for kind in ("decode", "prefill")}
     for kind, name in (("decode", "_decode"), ("prefill", "_prefill")):
         inner = getattr(executor, name)
 
-        def wrapped(arg, inner=inner, acc=accs[kind]):
-            kernel.counters[device] = acc
-            return inner(arg)
+        def wrapped(arg, inner=inner, tally=tallies[kind]):
+            before = acc.clone()
+            out = inner(arg)
+            tally.add_(acc - before)
+            return out
         setattr(executor, name, wrapped)
-    return accs
+    return tallies
 
 
 def summary(acc) -> dict:
@@ -80,13 +86,19 @@ def main(argv=None):
     harness.warm(setup, engine, args.seconds)
     ex = engine.executor
     calls0, rows0 = ex.moe_calls, ex.moe_rows
-    accs = split_by_pass(ex, setup.device.index or 0)
+    padding0 = ex.graph_padding_rows
+    tallies = split_by_pass(ex, setup.device.index or 0)
     win = harness.serve(setup, engine, args.seconds, args.seed)
     torch.cuda.synchronize()
-    kinds = {kind: summary(acc) for kind, acc in accs.items()}
+    kinds = {kind: summary(t) for kind, t in tallies.items()}
+    padding = ex.graph_padding_rows - padding0
+    cfg = setup.model
     out(tool="moe_routing", cell=args.workload, seed=args.seed, **kinds,
         host_moe_calls=ex.moe_calls - calls0,
         host_moe_rows=ex.moe_rows - rows0,
+        graph_padding_rows=padding,
+        host_rows_with_padding=ex.moe_rows - rows0 + padding
+        * cfg.num_experts_per_tok * cfg.num_layers,
         device_calls=sum(k["calls"] for k in kinds.values()),
         device_rows=sum(k["routed_rows"] for k in kinds.values()),
         end_to_end=harness.end_to_end(win))
