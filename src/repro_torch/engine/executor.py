@@ -73,14 +73,14 @@ class RealExecutor:
     k a layer for a pass of n tokens). With a ``tracer``
     (``engine/steptrace.py``) each step records its ``executor.*`` spans.
 
-    On a CUDA device, a dense or moe model's decode is replayed from CUDA
-    graphs (``paged_model.DecodeGraphs``), one per padded batch size up to
-    ``max_slots``, captured here; the slot-state families and the CPU
-    decode eagerly. ``graph_decodes`` counts the replayed decodes and
-    ``graph_padding_rows`` the padding rows they ran (the bucket less the
-    batch, each replay). The graphed pool has one page more than the
-    allocator's ``num_blocks``, at index ``num_blocks``, which only the
-    padding rows touch.
+    A dense or moe model decodes through ``paged_model.PagedDecoder``: each
+    batch padded to a bucket of ``decode_buckets(max_slots)``, replayed
+    from CUDA graphs captured here on the card and run eagerly on the CPU;
+    the slot-state families decode eagerly. ``graph_decodes`` counts the
+    replayed decodes and ``graph_padding_rows`` the padding rows they ran
+    (the bucket less the batch, each replay). The pool has one page more
+    than the allocator's ``num_blocks``, at index ``num_blocks``, which
+    only the padding rows touch.
     """
 
     needs_logits = True
@@ -110,17 +110,12 @@ class RealExecutor:
         self.max_model_len = max_model_len
         self.cost = RooflineCost(cfg, hw, tp=tp)
         self.paged = cfg.family in ("dense", "moe")
-        self.graphs = None
         if self.paged:
-            graphed = self.device.type == "cuda"     # every paged family
-            self.pool = paged_model.init_pool(
-                cfg, num_blocks + 1 if graphed else num_blocks, block_size,
-                device=self.device)
-            self.mb = -(-max_model_len // block_size)
-            if graphed:
-                self.graphs = paged_model.DecodeGraphs(
-                    params, cfg, self.pool, max_slots, self.mb,
-                    scratch=num_blocks)
+            self.pool = paged_model.init_pool(cfg, num_blocks + 1, block_size,
+                                              device=self.device)
+            self.decoder = paged_model.PagedDecoder(
+                params, cfg, self.pool, max_slots,
+                -(-max_model_len // block_size), scratch=num_blocks)
         else:
             self.cache = api.init_cache(cfg, max_slots, max_model_len,
                                         dtype=torch.float32,
@@ -195,30 +190,23 @@ class RealExecutor:
         if tr is not None:
             t = tr.now()
         s = len(dec["slots"])
-        graphs = self.graphs
-        bucket = (paged_model.decode_bucket(s, graphs.max_slots)
-                  if graphs is not None else 0)
-        if bucket:
-            graphs.stage(dec, bucket)
+        bucket = 0
+        if self.paged:
+            dcd = self.decoder
+            b = paged_model.decode_bucket(s, dcd.max_slots)
+            dcd.stage(dec, b)
+            bucket = b if dcd.graphed else 0
         else:
             toks = self._tensor(dec["tokens"], np.int64)
             pos = self._tensor(dec["pos"], np.int64)
-            if self.paged:
-                bt = np.zeros((s, self.mb), np.int32)
-                for i, table in enumerate(dec["block_tables"]):
-                    bt[i, :len(table)] = table
-                index = self._tensor(bt, np.int32)
-            else:
-                index = self._tensor(dec["slots"], np.int64)
+            index = self._tensor(dec["slots"], np.int64)
         if tr is not None:
             t = tr.span("executor.prepare", t, kind="decode")
-        if bucket:
-            logits = graphs.replay(bucket, s)
-            self.graph_decodes += 1
-            self.graph_padding_rows += bucket - s
-        elif self.paged:
-            logits, _ = paged_model.decode_step(
-                self.params, self.cfg, toks, pos, self.pool, index)
+        if self.paged:
+            logits = dcd.run(b, s)
+            if bucket:
+                self.graph_decodes += 1
+                self.graph_padding_rows += bucket - s
         else:
             # gather the slots' caches, run decode_fn, scatter them back
             cache = {k: slab.index_select(1, index).to(self.cache_dtypes[k])

@@ -7,9 +7,9 @@ paged-attention op: the hand-written CUDA kernel on the card, its plain
 version on the CPU. The pool is updated in place where the JAX code returns
 a functionally updated copy (``.at[].set``); the functions still return it.
 
-``DecodeGraphs`` replays the dense and moe decode step from CUDA graphs, one
-per padded batch size of ``decode_buckets``; the JAX package has no
-counterpart (XLA compiles its step whole).
+``PagedDecoder`` runs the dense and moe decode step on a padded batch size
+of ``decode_buckets``, replayed from CUDA graphs on the card and eager on
+the CPU; the JAX package has no counterpart (XLA compiles its step whole).
 """
 from __future__ import annotations
 
@@ -100,9 +100,9 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):
 
 @functools.lru_cache(maxsize=16)
 def decode_buckets(max_slots: int) -> tuple:
-    """The padded decode batch sizes a graphed decode is captured at: 1, 2,
-    4, 8, steps of 8 up to 64, then four steps an octave (80, 96, 112, 128,
-    160, ...), ending at ``max_slots``. Each capture costs set-up time
+    """The paged decode's padded batch sizes, a CUDA graph each on the card:
+    1, 2, 4, 8, steps of 8 up to 64, then four steps an octave (80, 96, 112,
+    128, 160, ...), ending at ``max_slots``. Each capture costs set-up time
     (about 0.12 s at Mistral-Small-24B's 40 layers on an H100) and each
     padding row little device time, hence the coarser steps at the top."""
     ladder, b = [1, 2, 4], 8
@@ -122,24 +122,24 @@ def decode_bucket(s: int, max_slots: int) -> int:
     return buckets[bisect.bisect_left(buckets, s)]
 
 
-class DecodeGraphs:
-    """``decode_step`` of a dense or moe model captured in CUDA graphs, one
-    per bucket of ``decode_buckets(max_slots)``, so that a step costs the
-    host one copy and one graph launch instead of every layer's kernel
-    launches (some 60 a layer for dense; for moe, the router's, its sorts'
-    and the grouped expert kernel's beside those).
+class PagedDecoder:
+    """``decode_step`` of a dense or moe model on a padded bucket of
+    ``decode_buckets(max_slots)``. On a CUDA pool (``graphed``) each bucket
+    is captured in a CUDA graph, so a step costs the host one copy and one
+    graph launch instead of every layer's kernel launches (some 60 a layer
+    for dense, more for moe); on the CPU the same bucket runs eagerly.
 
-    The graphs read one static int32 buffer, for a bucket b laid out as
-    tokens (b), positions (b) and block tables (b, mb), and write their
-    logits, cast to f32, into one static (max_slots, V) buffer; they share
-    one memory pool and are captured largest first, here, before any step.
-    No graph keeps a live tensor in that pool (its inputs and the logits lie
-    outside it), so the graphs may replay in any order.
+    The step reads one static int32 buffer, for a bucket b laid out as
+    tokens (b), positions (b) and block tables (b, mb), staged on the card
+    through a pinned copy, and writes its f32 logits into one static
+    (max_slots, V) buffer. The graphs share one memory pool and are
+    captured largest first, here; none keeps a live tensor in that pool
+    (its inputs and the logits lie outside it), so they replay in any order.
     The rows of a bucket past the real batch are padding: token 0 at
     position 0 (context 1) with every table entry on ``scratch``, a page of
     the pool that the allocator never hands out, so a padding row writes
     its K/V there and reads nothing else. ``stage`` fills every row of the
-    bucket on every step, so a smaller batch never replays rows that an
+    bucket on every step, so a smaller batch never runs rows that an
     earlier, larger one left behind. Neither the paged-attention kernel
     (``kernels/paged_attention``) nor the serving MoE layer
     (``moe.moe_block``: shapes from n alone, the grouped kernel's expert
@@ -149,7 +149,7 @@ class DecodeGraphs:
     In a moe model the padding rows are routed like any other: serving is
     dropless, so they take no expert's row from a real one; each adds its k
     routed rows (token 0's experts, the same in every padding row) to the
-    grouped kernel's work, and leaves the real rows' arithmetic as it is.
+    expert work, and leaves the real rows' arithmetic as it is.
 
     A capture launches nothing, so the kernel wrappers' calls during it are
     taken back off their ``launches`` (every wrapper in ``kernels.build``'s
@@ -164,19 +164,25 @@ class DecodeGraphs:
     def __init__(self, params, cfg: ModelConfig, pool, max_slots: int,
                  mb: int, scratch: int):
         if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"graphed decode serves dense and moe, not "
+            raise ValueError(f"paged decode serves dense and moe, not "
                              f"{cfg.family!r}")
         dev = pool["k"].device
+        self.graphed = dev.type == "cuda"
         self.params, self.cfg, self.pool = params, cfg, pool
         self.max_slots, self.mb, self.scratch = max_slots, mb, scratch
         n = max_slots * (2 + mb)
-        self._host = torch.empty(n, dtype=torch.int32, pin_memory=True)
-        self._rows = self._host.numpy()      # the same memory, for numpy
         self._dev = torch.empty(n, dtype=torch.int32, device=dev)
-        # recorded once a replay's copy has left the pinned buffer
-        self._copied = torch.cuda.Event()
+        self._host = (torch.empty(n, dtype=torch.int32, pin_memory=True)
+                      if self.graphed else self._dev)
+        self._rows = self._host.numpy()      # the same memory, for numpy
         self.logits = torch.empty(max_slots, cfg.vocab_size,
                                   dtype=torch.float32, device=dev)
+        # per bucket, its graph and the counted wrappers' calls a replay makes
+        self.graphs, self.launches = {}, {}
+        if not self.graphed:
+            return
+        # recorded once a replay's copy has left the pinned buffer
+        self._copied = torch.cuda.Event()
         buckets = decode_buckets(max_slots)
         self.stage({"tokens": [], "pos": [], "block_tables": []}, buckets[-1])
         self._dev.copy_(self._host)
@@ -189,8 +195,6 @@ class DecodeGraphs:
             self._run(buckets[-1])
         torch.cuda.current_stream(dev).wait_stream(stream)
         mempool = torch.cuda.graph_pool_handle()
-        # per bucket, the calls of each counted wrapper that a replay makes
-        self.graphs, self.launches = {}, {}
         for b in reversed(buckets):
             g = torch.cuda.CUDAGraph()
             n0 = {fn: fn.launches for fn in build.COUNTED}
@@ -214,9 +218,10 @@ class DecodeGraphs:
     def stage(self, dec: dict, b: int):
         """Write the decode batch ``dec`` (the executor's input) into the
         host side of the static buffer as bucket ``b``: its rows, then
-        padding rows up to ``b``. Waits for the last replay's copy to
-        have read the buffer first."""
-        self._copied.synchronize()
+        padding rows up to ``b``. When graphed, waits for the last replay's
+        copy to have read the buffer first."""
+        if self.graphed:
+            self._copied.synchronize()
         s, mb = len(dec["tokens"]), self.mb
         rows = self._rows
         rows[:2 * b] = 0
@@ -227,11 +232,14 @@ class DecodeGraphs:
         for i, table in enumerate(dec["block_tables"]):
             tables[i, :len(table)] = table
 
-    def replay(self, b: int, s: int):
-        """Copy the staged bucket ``b`` to the device and replay its graph.
-        Returns the f32 logits of the first ``s`` rows (a view of the static
-        buffer, valid until the next replay). The copy is asynchronous from
-        pinned memory; ``stage`` waits for it before it writes there again."""
+    def run(self, b: int, s: int):
+        """Run the staged bucket ``b``; returns the f32 logits of its first
+        ``s`` rows: on the CPU eagerly, as a copy; when graphed, by copying
+        the bucket from pinned memory asynchronously (``stage`` waits for it)
+        and replaying its graph, as a view valid until the next replay."""
+        if not self.graphed:
+            self._run(b)
+            return self.logits[:s].clone()
         n = b * (2 + self.mb)
         self._dev[:n].copy_(self._host[:n], non_blocking=True)
         self._copied.record()

@@ -35,7 +35,7 @@ def counted(fn):
     """Registers a kernel wrapper in ``COUNTED`` and starts its
     ``launches`` at 0; the wrapper adds 1 to it on each call that launched.
     Code that launches the kernels without their wrappers keeps the counts
-    true over every registered wrapper (``engine/paged_model.DecodeGraphs``
+    true over every registered wrapper (``engine/paged_model.PagedDecoder``
     replays them from CUDA graphs)."""
     fn.launches = 0
     COUNTED.append(fn)

@@ -6,7 +6,7 @@ over a capacity buffer, which drops rows (``repro/models/moe.py``).
 ``moe_grouped.launches`` counts the wrapper's calls that launched: one per
 call, though each call launches two kernels (gate and up with SiLU, then
 down), so the main path counts one per MoE layer per model pass (a graph
-replay of a decode adds its layers' calls: ``paged_model.DecodeGraphs``).
+replay of a decode adds its layers' calls: ``paged_model.PagedDecoder``).
 
 ``counters`` holds, per CUDA device index, the int64 accumulator the kernel
 adds to on every call, with no synchronisation: calls, routed rows, experts

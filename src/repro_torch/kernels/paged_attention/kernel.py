@@ -5,7 +5,7 @@ kernel ``repro/kernels/paged_attention/kernel.py:paged_attention``.
 ``paged_attention.launches`` counts the wrapper's calls that launched: one
 per call, though each call launches two kernels (the split pass and the
 combine), so the main path counts one per layer per decode step. A decode
-replayed from a CUDA graph (``engine/paged_model.DecodeGraphs``) launches
+replayed from a CUDA graph (``engine/paged_model.PagedDecoder``) launches
 the kernels without the wrapper; the replay adds its layers' launches here,
 and the capture takes back the calls it made. ``plan`` is
 the host-side choice of split and scratch, in plain Python so that it can be

@@ -322,136 +322,12 @@ def test_moe_engine_on_card_matches_cpu(gen):
 
 
 # --------------------------------------------------------------------------
-# the dense and moe decode replayed from CUDA graphs (paged_model.DecodeGraphs)
+# the dense and moe decode replayed from CUDA graphs (paged_model.PagedDecoder;
+# its tests on both devices are in test_torch_decode_graph.py)
 # --------------------------------------------------------------------------
 
-GRAPH_CAP = 16                  # max_slots: buckets 1, 2, 4, 8 and 16
-GRAPH_BLOCKS, GRAPH_BS, GRAPH_LEN = 96, 16, 128      # tables of 8 pages
-GRAPH_CTX = 64                  # contexts up to 4 pages: 17 fit the pool
-# the graphed families: a dense model and a moe one, each reduced
-GRAPHED = pytest.mark.parametrize("name", ["qwen3-1.7b", "qwen3-moe-30b-a3b"],
-                                  ids=["dense", "moe"])
-
-
-def _card_executor(name, seed=7):
-    """A reduced RealExecutor on the card with every allocator page of its
-    paged pool (if it has one) filled with noise; returns (cfg, params,
-    executor)."""
-    from repro_torch import configs
-    from repro_torch.config import GPU_H100
-    from repro_torch.engine.executor import RealExecutor
-    from repro_torch.models import api
-    cfg = configs.get(name).reduced()
-    params = _to(api.init_params(cfg, torch.Generator().manual_seed(seed),
-                                 "cpu"), "cuda")
-    ex = RealExecutor(cfg, params, num_blocks=GRAPH_BLOCKS,
-                      block_size=GRAPH_BS, hw=GPU_H100,
-                      max_model_len=GRAPH_LEN, max_slots=GRAPH_CAP,
-                      device="cuda")
-    if ex.paged:
-        _noise(ex.pool, seed)
-    return cfg, params, ex
-
-
-def _noise(pool, seed):
-    g = torch.Generator("cuda").manual_seed(seed)
-    for leaf in pool.values():
-        leaf[:, :GRAPH_BLOCKS].normal_(generator=g)
-
-
-def _decode_batch(s, seed, vocab):
-    """The executor's decode input for s sequences on pages of their own,
-    none of them block 0 (an ordinary block that zero table entries name)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    pages = [p for p in rng.permutation(GRAPH_BLOCKS).tolist() if p]
-    dec = {"slots": list(range(s)), "tokens": [], "pos": [],
-           "block_tables": []}
-    for _ in range(s):
-        ctx = int(rng.integers(1, GRAPH_CTX + 1))
-        n = -(-ctx // GRAPH_BS)
-        dec["block_tables"].append(pages[:n])
-        pages = pages[n:]
-        dec["tokens"].append(int(rng.integers(1, vocab)))
-        dec["pos"].append(ctx - 1)
-    return dec
-
-
-def _eager_decode(cfg, params, pool, dec):
-    """``paged_model.decode_step`` on ``pool`` as the eager path calls it."""
-    from repro_torch.engine import paged_model
-    s, mb = len(dec["slots"]), GRAPH_LEN // GRAPH_BS
-    bt = torch.zeros((s, mb), dtype=torch.int32)
-    for i, table in enumerate(dec["block_tables"]):
-        bt[i, :len(table)] = torch.tensor(table, dtype=torch.int32)
-    logits, _ = paged_model.decode_step(
-        params, cfg, torch.tensor(dec["tokens"], device="cuda"),
-        torch.tensor(dec["pos"], device="cuda"), pool, bt.cuda())
-    return logits.float().cpu()
-
-
-def _written(pool, before, dec):
-    """Which (layer, block, offset) slots of the allocator's pages differ
-    from ``before``, and which the batch's rows own at their positions."""
-    got = torch.zeros(pool["k"].shape[:3], dtype=torch.bool, device="cuda")
-    for name in ("k", "v"):
-        got |= (pool[name] != before[name]).flatten(3).any(-1)
-    want = torch.zeros_like(got)
-    for table, p in zip(dec["block_tables"], dec["pos"]):
-        want[:, table[p // GRAPH_BS], p % GRAPH_BS] = True
-    return got[:, :GRAPH_BLOCKS], want[:, :GRAPH_BLOCKS]
-
-
-@GRAPHED
-@pytest.mark.parametrize("s", [3, 5, 13, 16])
-def test_graphed_decode_matches_eager(s, name, gen):
-    """Batches between buckets (3, 5, 13) and one on the cap (16): the
-    step's logits against the eager decode on the same pool, within bf16
-    rounding and with the same argmax, and the pool's live pages as the
-    eager decode leaves them. For moe, the padding rows' routed rows beside
-    the real ones leave the real rows' outputs as the eager layer gives
-    them."""
-    from repro_torch.engine import paged_model
-    cfg, params, ex = _card_executor(name)
-    assert sorted(ex.graphs.graphs) == [1, 2, 4, 8, 16]
-    assert ex.pool["k"].shape[1] == GRAPH_BLOCKS + 1
-    dec = _decode_batch(s, s, cfg.vocab_size)
-    eager = {k: v.clone() for k, v in ex.pool.items()}
-    _, out, _ = ex.step([], dec)
-    bucket = paged_model.decode_bucket(s, GRAPH_CAP)
-    assert bucket == {3: 4, 5: 8, 13: 16, 16: 16}[s]
-    assert (ex.decode_steps, ex.graph_decodes) == (1, 1)
-    ref = _eager_decode(cfg, params, eager, dec)
-    atol, rtol = TOL[torch.bfloat16]
-    torch.testing.assert_close(torch.from_numpy(out), ref, atol=atol,
-                               rtol=rtol)
-    assert (out.argmax(-1) == ref.argmax(-1).numpy()).all()
-    for leaf in ("k", "v"):
-        _close(ex.pool[leaf][:, :GRAPH_BLOCKS],
-               eager[leaf][:, :GRAPH_BLOCKS], TOL[torch.bfloat16])
-
-
-@pytest.mark.parametrize("sizes", [(8, 5), (3,), (16, 1, 9)],
-                         ids=["smaller_after_larger", "padded",
-                              "three_buckets"])
-@GRAPHED
-def test_graphed_decode_writes_only_its_own_slots(sizes, name, gen):
-    """Each step, graphed (5 after 8 replays bucket 8 with three padding
-    rows where the last batch had sequences), changes the allocator's pages
-    only at the new token's slot of each real row: every page it does not
-    own, block 0 among them, and every other slot stay bitwise as they
-    were. The pool is refilled with noise before each step, so a row left
-    over from the last batch would show by what it writes."""
-    cfg, _, ex = _card_executor(name)
-    for i, s in enumerate(sizes):
-        _noise(ex.pool, 100 + i)
-        dec = _decode_batch(s, 10 * i + s, cfg.vocab_size)
-        before = {k: v.clone() for k, v in ex.pool.items()}
-        ex.step([], dec)
-        got, want = _written(ex.pool, before, dec)
-        assert torch.equal(got, want)
-        assert not bool(got[:, 0].any())
-    assert ex.graph_decodes == ex.decode_steps == len(sizes)
+from test_torch_decode_graph import (  # noqa: E402
+    GRAPH_CAP, GRAPHED, _decode_batch, _executor)
 
 
 @GRAPHED
@@ -466,7 +342,7 @@ def test_graph_decodes_counts_replays_only(name, gen):
     from repro_torch.kernels.paged_attention import kernel as pa
     counted = (pa.paged_attention, mg.moe_grouped)
     before = [fn.launches for fn in counted]
-    cfg, _, ex = _card_executor(name)
+    cfg, _, ex = _executor(name, "cuda")
     n = cfg.num_layers
     per_pass = (n, n if cfg.family == "moe" else 0)
     # the one eager pass before the captures launches; the captures do not
@@ -476,7 +352,7 @@ def test_graph_decodes_counts_replays_only(name, gen):
     # counted wrapper (``kernels.build.COUNTED``), and only those two
     from repro_torch.kernels import build
     want = {fn: c for fn, c in zip(counted, per_pass) if c}
-    for per_bucket in ex.graphs.launches.values():
+    for per_bucket in ex.decoder.launches.values():
         assert set(per_bucket) == set(build.COUNTED)
         assert {fn: c for fn, c in per_bucket.items() if c} == want
     prompt = list(range(3, 40))
@@ -496,38 +372,16 @@ def test_graph_decodes_counts_replays_only(name, gen):
     assert ex.graph_padding_rows == padding == 1 + 0 + 0 + 3
 
 
-@GRAPHED
-def test_graphed_replays_back_to_back(name, gen):
-    """Two replays with no read of the logits between them: the second
-    ``stage`` waits for the first copy to leave the pinned buffer, so each
-    replay decodes its own batch, as the eager decode does on a copy of
-    the pool."""
-    from repro_torch.engine import paged_model
-    cfg, params, ex = _card_executor(name)
-    g = ex.graphs
-    decs = [_decode_batch(s, 50 + s, cfg.vocab_size) for s in (7, 5)]
-    eager = {k: v.clone() for k, v in ex.pool.items()}
-    outs = []
-    for dec in decs:
-        b = paged_model.decode_bucket(len(dec["slots"]), GRAPH_CAP)
-        g.stage(dec, b)
-        outs.append(g.replay(b, len(dec["slots"])).clone())
-    atol, rtol = TOL[torch.bfloat16]
-    for dec, out in zip(decs, outs):
-        ref = _eager_decode(cfg, params, eager, dec)
-        torch.testing.assert_close(out.cpu(), ref, atol=atol, rtol=rtol)
-        assert torch.equal(out.cpu().argmax(-1), ref.argmax(-1))
-
-
 @pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b"],
                          ids=["ssm", "hybrid"])
 def test_other_families_capture_nothing(name, gen):
     """The slot-state families decode eagerly on the card: no graphs,
     ``graph_decodes`` 0. moe left this test when its decode was graphed
     (its serving is dropless, so padding rows take no real row's expert
-    capacity); the graphed tests above run it beside dense."""
-    cfg, _, ex = _card_executor(name)
-    assert ex.graphs is None and not ex.paged
+    capacity); the graphed tests of test_torch_decode_graph.py run it
+    beside dense."""
+    cfg, _, ex = _executor(name, "cuda")
+    assert not ex.paged and not hasattr(ex, "decoder")
     ex.step([], _decode_batch(3, 3, cfg.vocab_size))
     assert (ex.decode_steps, ex.graph_decodes) == (1, 0)
 

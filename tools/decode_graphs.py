@@ -1,5 +1,5 @@
 """Readings of the paged decode's CUDA graphs
-(``repro_torch.engine.paged_model.DecodeGraphs``, dense and moe) on the
+(``repro_torch.engine.paged_model.PagedDecoder``, dense and moe) on the
 card, each in one process. The benchmark runs none of it.
 
     python3 tools/decode_graphs.py share --workload mistral-24b.chat \
@@ -69,7 +69,7 @@ def share(setup, seconds, seed):
     ex = engine.executor
     pool = sum(v.numel() * v.element_size() for v in ex.pool.values())
     out(tool="share", engine_build_s=build_s,
-        graphs=sorted(ex.graphs.graphs) if ex.graphs else [],
+        graphs=sorted(ex.decoder.graphs) if ex.paged else [],
         pool_bytes=pool, allocated_beyond_pool=a1 - a0 - pool,
         reserved_beyond_pool=r1 - r0 - pool)
     tracer = stepspans.attach(engine)
@@ -133,7 +133,7 @@ def padding(setup, sizes, ctx, repeats):
     mb = -(-kw["max_model_len"] // bs)
     pool = paged_model.init_pool(cfg, nb + 1, bs, device="cuda")
     t = time.perf_counter()
-    graphs = paged_model.DecodeGraphs(setup.params, cfg, pool, cap, mb,
+    graphs = paged_model.PagedDecoder(setup.params, cfg, pool, cap, mb,
                                       scratch=nb)
     torch.cuda.synchronize()
     groups = [harness.PAGED_KERNELS]
@@ -156,7 +156,7 @@ def padding(setup, sizes, ctx, repeats):
             bt[i, :len(table)] = torch.tensor(table, dtype=torch.int32)
         args = (torch.tensor(dec["tokens"], device="cuda"),
                 torch.tensor(dec["pos"], device="cuda"), bt.cuda())
-        runs = {f"bucket_{b}": (lambda b=b: graphs.replay(b, s), b)
+        runs = {f"bucket_{b}": (lambda b=b: graphs.run(b, s), b)
                 for b in buckets}
         runs["eager"] = (lambda: paged_model.decode_step(
             setup.params, cfg, *args[:2], pool, args[2]), s)
