@@ -500,8 +500,9 @@ def expected_counts(cfg, ex):
 
 def check_moe_calls(name, cfg, ex):
     """The executor counts a moe path's MoE layers once a layer a model
-    pass; any other path's, never."""
-    want = cfg.num_layers * (ex.decode_steps + ex.prefill_computes) \
+    pass (a prefill pass computes all the prompts it packs); any other
+    path's, never."""
+    want = cfg.num_layers * (ex.decode_steps + ex.prefill_passes) \
         if cfg.family == "moe" else 0
     check(ex.moe_calls == want,
           f"{name}: moe_calls {ex.moe_calls}, want {want}")
@@ -550,7 +551,8 @@ def phase_path(cfg):
     print(f"path {name} " + json.dumps(
         {"wall_s": wall, "output_tokens": n, "tokens_per_s": n / wall,
          "decode_steps": ex.decode_steps, "graph_decodes": ex.graph_decodes,
-         "prefill_computes": ex.prefill_computes, "launches": counts,
+         "prefill_computes": ex.prefill_computes,
+         "prefill_passes": ex.prefill_passes, "launches": counts,
          "moe_calls": ex.moe_calls, "moe_rows": ex.moe_rows,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     check(all(r.status.value == "finished"

@@ -37,6 +37,25 @@ def _step_shape(prefills, decode):
     return new_tokens, ctx, batch, total_ctx
 
 
+def pack_prefills(prefills: list, budget: int) -> list:
+    """The prefill passes of a step: for each pass, the indices into
+    ``prefills`` (the executor's input) of the prompts it computes. Only
+    prompts on their last chunk are computed, each whole; they are taken in
+    the scheduler's order and cut into runs whose prompt tokens together
+    stay within ``budget``. A prompt longer than that is a pass alone."""
+    passes, used = [], budget
+    for i, pf in enumerate(prefills):
+        if not pf["is_last"]:
+            continue
+        n = len(pf["token_ids"])
+        if used + n > budget:
+            passes.append([])
+            used = 0
+        passes[-1].append(i)
+        used += n
+    return passes
+
+
 class SimExecutor:
     """Analytic executor: timing only."""
 
@@ -67,11 +86,24 @@ class RealExecutor:
     back in the dtype the model's own cache has at the params' dtype (the
     slab holds those values exactly, being written from them) and runs
     ``decode_fn`` on it, as the reference's ``decode_fn`` runs on its own
-    caches. ``decode_steps`` and ``prefill_computes`` count the model passes
-    this executor ran. For moe, ``moe_calls`` counts the MoE layers those
-    passes ran (layers x passes) and ``moe_rows`` the rows they routed (n x
-    k a layer for a pass of n tokens). With a ``tracer``
-    (``engine/steptrace.py``) each step records its ``executor.*`` spans.
+    caches. ``decode_steps`` counts the decode passes this executor ran,
+    ``prefill_computes`` the prompts it computed and ``prefill_passes`` the
+    prefill passes that computed them. For moe, ``moe_calls`` counts the
+    MoE layers those passes ran (layers x passes) and ``moe_rows`` the rows
+    they routed (n x k a layer for a pass of n tokens). With a ``tracer``
+    (``engine/steptrace.py``) each step records its ``executor.*`` spans,
+    a prefill's ``executor.launch`` with the ``prompts`` its pass computed.
+
+    A dense or moe model computes a step's prompts on their last chunk
+    together (``pack_prefills``): in passes of at most
+    ``max_prefill_tokens`` prompt tokens, the engine's budget a step, each
+    through ``paged_model.prefill`` (one staged copy to the device, one
+    pass of every layer over all the pass's rows, one scatter of its K/V a
+    group of layers, one copy of its logits to the host), so a pass's
+    activations are never larger than a single prompt's of that budget; a
+    longer prompt is a pass alone. The slot-state families compute one
+    prompt a pass. The JAX package has no counterpart: its executor
+    prefills one prompt a call.
 
     A dense or moe model decodes through ``paged_model.PagedDecoder``: each
     batch padded to a bucket of ``decode_buckets(max_slots)``, replayed
@@ -89,7 +121,7 @@ class RealExecutor:
     def __init__(self, cfg: ModelConfig, params, num_blocks: int,
                  block_size: int, hw: HardwareConfig, tp: int = 1,
                  max_model_len: int = 4096, max_slots: int = 64,
-                 device="cuda"):
+                 device="cuda", max_prefill_tokens: int = 2048):
         self.device = require_device(device)
         if cfg.family in ("vlm", "audio"):
             inputs = {"vlm": "patch embeddings", "audio": "audio frames"}
@@ -108,6 +140,7 @@ class RealExecutor:
         self.params = params
         self.block_size = block_size
         self.max_model_len = max_model_len
+        self.max_prefill_tokens = max_prefill_tokens
         self.cost = RooflineCost(cfg, hw, tp=tp)
         self.paged = cfg.family in ("dense", "moe")
         if self.paged:
@@ -127,6 +160,7 @@ class RealExecutor:
         self.graph_decodes = 0
         self.graph_padding_rows = 0
         self.prefill_computes = 0
+        self.prefill_passes = 0
         self.moe_calls = 0
         self.moe_rows = 0
 
@@ -139,7 +173,19 @@ class RealExecutor:
             tr.open("executor.step", tr.now())
         elapsed = self.cost.mixed_time(*_step_shape(prefills, decode))
         dec_logits = self._decode(decode) if decode else None
-        pre_logits = [self._prefill(pf) for pf in prefills or ()]
+        prefills = prefills or []
+        # chunked prefill: timing per chunk; compute happens once on the
+        # final chunk (whole-prompt recompute — numerically identical)
+        pre_logits = [None] * len(prefills)
+        if self.paged:
+            for group in pack_prefills(prefills, self.max_prefill_tokens):
+                rows = self._prefill_pass([prefills[i] for i in group])
+                for i, row in zip(group, rows):
+                    pre_logits[i] = row
+        else:
+            for i, pf in enumerate(prefills):
+                if pf["is_last"]:
+                    pre_logits[i] = self._prefill(pf)
         if tr is not None:
             tr.close()
         return pre_logits, dec_logits, elapsed
@@ -154,32 +200,48 @@ class RealExecutor:
             self.moe_rows += (self.cfg.num_layers * n
                               * self.cfg.num_experts_per_tok)
 
+    def _prefill_pass(self, pfs: list):
+        """One packed pass over the whole prompts ``pfs`` (dense, moe);
+        returns their last tokens' logits, (P, V)."""
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
+        lengths = [len(pf["token_ids"]) for pf in pfs]
+        staged = self._tensor(paged_model.stage_prefill(
+            pfs, self.block_size, self.decoder.scratch), np.int64)
+        if tr is not None:
+            t = tr.span("executor.prepare", t, kind="prefill")
+        logits = paged_model.prefill(self.params, self.cfg, self.pool, staged,
+                                     lengths)
+        self.prefill_computes += len(pfs)
+        self.prefill_passes += 1
+        self._count_moe(sum(lengths))
+        if tr is not None:
+            t = tr.span("executor.launch", t, kind="prefill",
+                        prompts=len(pfs))
+        out = logits.float().cpu().numpy()
+        if tr is not None:
+            tr.span("executor.to_host", t, kind="prefill")
+        return out
+
     def _prefill(self, pf: dict):
-        if not pf["is_last"]:
-            # chunked prefill: timing per chunk; compute happens once on the
-            # final chunk (whole-prompt recompute — numerically identical)
-            return None
+        """One whole prompt of a slot-state model (ssm, hybrid) into its
+        slot; returns its last token's logits."""
         tr = self.tracer
         if tr is not None:
             t = tr.now()
         toks = self._tensor(pf["token_ids"], np.int64)[None]
-        table = (self._tensor(pf["block_table"], np.int64) if self.paged
-                 else None)
         if tr is not None:
             t = tr.span("executor.prepare", t, kind="prefill")
         logits, cache = api.prefill_fn(self.params, self.cfg,
                                        {"tokens": toks})
-        if self.paged:
-            paged_model.write_prefill(self.pool, cache, table,
-                                      self.block_size)
-        else:
-            cache = api.pad_cache(self.cfg, cache, self.max_model_len)
-            for key, slab in self.cache.items():
-                slab[:, pf["slot"]] = cache[key][:, 0]
+        cache = api.pad_cache(self.cfg, cache, self.max_model_len)
+        for key, slab in self.cache.items():
+            slab[:, pf["slot"]] = cache[key][:, 0]
         self.prefill_computes += 1
-        self._count_moe(toks.shape[1])
+        self.prefill_passes += 1
         if tr is not None:
-            t = tr.span("executor.launch", t, kind="prefill")
+            t = tr.span("executor.launch", t, kind="prefill", prompts=1)
         out = logits[0].float().cpu().numpy()
         if tr is not None:
             tr.span("executor.to_host", t, kind="prefill")

@@ -10,12 +10,16 @@ a functionally updated copy (``.at[].set``); the functions still return it.
 ``PagedDecoder`` runs the dense and moe decode step on a padded batch size
 of ``decode_buckets``, replayed from CUDA graphs on the card and eager on
 the CPU; the JAX package has no counterpart (XLA compiles its step whole).
+Nor has ``prefill`` (with ``stage_prefill``), which computes several whole
+prompts in one pass and scatters their K/V into the pool; the reference's
+executor prefills one prompt a call.
 """
 from __future__ import annotations
 
 import bisect
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,7 +46,8 @@ WRITE_LAYERS = 8   # layers of a prefill cache cast to the pool's dtype at once
 
 def write_prefill(pool, cache, block_table, block_size: int):
     """Scatter one sequence's dense prefill cache into its pool blocks, in
-    place.
+    place: the reference's one prompt a call (the executor's passes go
+    through ``prefill``, which writes only the prompts' own slots).
 
     cache: {"k": (L, 1, T, KV, D)}; block_table: (nb,) int64 where
     nb = ceil(T / block_size). T is padded up to a whole block. The cast to
@@ -61,6 +66,58 @@ def write_prefill(pool, cache, block_table, block_size: int):
             dst[i:i + WRITE_LAYERS, block_table] = \
                 c[i:i + WRITE_LAYERS].to(dst.dtype)
     return pool
+
+
+def stage_prefill(prefills, block_size: int, scratch: int) -> np.ndarray:
+    """The host side of a packed prefill pass over ``prefills`` (the
+    executor's input, each a whole prompt): one int64 buffer of the
+    prompts' tokens one after another (N), each token's position in its own
+    prompt (N), then its pool slot (N): block * block_size + offset, the
+    block from its own prompt's table. Where two prompts' tables share a
+    block (a cached prefix), only the last prompt's token writes a slot, as
+    per-prompt writes in turn would leave it; an earlier one writes into
+    page ``scratch``, which nothing reads."""
+    tokens, pos, slots = [], [], []
+    for pf in prefills:
+        n = len(pf["token_ids"])
+        t = np.arange(n)
+        table = np.asarray(pf["block_table"], np.int64)
+        tokens.append(np.asarray(pf["token_ids"], np.int64))
+        pos.append(t)
+        slots.append(table[t // block_size] * block_size + t % block_size)
+    slots = np.concatenate(slots)
+    _, last = np.unique(slots[::-1], return_index=True)
+    if len(last) < len(slots):
+        keep = np.zeros(len(slots), bool)
+        keep[len(slots) - 1 - last] = True
+        slots = np.where(keep, slots, scratch * block_size)
+    return np.concatenate(tokens + pos + [slots]).astype(np.int64)
+
+
+def prefill(params, cfg: ModelConfig, pool, staged, lengths):
+    """Several whole prompts of a dense or moe model in one pass, their K/V
+    written into the pool in place: ``staged`` is ``stage_prefill``'s
+    buffer on the pool's device, ``lengths`` the prompts' lengths in its
+    order. Every layer runs once over all the prompts' rows, each prompt
+    attending only to itself (``transformer.prefill_layers``); the K/V go
+    into the pool by one scatter a ``WRITE_LAYERS`` group of layers for the
+    whole pass. Returns the logits of each prompt's last token, (P, V)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"packed prefill serves dense and moe, not "
+                         f"{cfg.family!r}")
+    n = sum(lengths)
+    ffn = moe.ffn if cfg.family == "moe" else transformer.ffn
+    x = cm.embed(params["embedding"], staged[None, :n])
+    logits, cache = transformer.prefill_layers(
+        params, cfg, x, ffn, lengths=lengths, positions=staged[n:2 * n])
+    slots = staged[2 * n:]
+    for name in ("k", "v"):
+        c = cache.pop(name)[:, 0]                     # (L, N, KV, D)
+        dst = pool[name].flatten(1, 2)                # (L, pages * BS, KV, D)
+        for i in range(0, c.shape[0], WRITE_LAYERS):
+            dst[i:i + WRITE_LAYERS, slots] = \
+                c[i:i + WRITE_LAYERS].to(dst.dtype)
+    return logits
 
 
 def decode_step(params, cfg: ModelConfig, tokens, pos, pool, block_tables):

@@ -8,13 +8,15 @@ step that scheduled work, in the closed vocabulary ``STEP_SPANS``:
       engine.schedule
       executor.step
         executor.prepare     kind (decode | prefill)
-        executor.launch      kind
+        executor.launch      kind; graph (decode) | prompts (prefill)
         executor.to_host     kind
       engine.sample
 
 ``executor.prepare`` / ``launch`` / ``to_host`` come once a model pass (the
-decode batch, each prompt computed); a chunk of a chunked prefill that
-computes nothing has none. These spans are apart from the per-request trees
+decode batch, each prefill pass: a dense or moe executor packs a step's
+finished prompts into passes, and a prefill launch's ``prompts`` says how
+many its pass computed); a chunk of a chunked prefill that computes nothing
+has none. These spans are apart from the per-request trees
 of ``core.tracing`` (``RequestTrace``), whose ``Span`` type they share.
 
 Stamps are ``time.perf_counter_ns()``, read only in this module, each read

@@ -65,10 +65,12 @@ def _entry():
 
 
 @build.counted
-def flash_prefill(q, k, v, window: int = 0):
+def flash_prefill(q, k, v, window: int = 0, out=None):
     """q: (B, T, H, D); k/v: (B, T, KV, D) -> (B, T, H, D). Any T; all
     tensors contiguous and 16-byte aligned on one CUDA device, one dtype:
-    f32 (any D up to 256) or bf16 (D 64, 96, 128 or 256)."""
+    f32 (any D up to 256) or bf16 (D 64, 96, 128 or 256). With ``out``
+    (q's shape and dtype, as q is laid out) the kernel writes there and
+    returns it, in place of a new tensor."""
     b, t, h, d = q.shape
     dev = q.get_device()  # -1 on the CPU; ints keep the checks cheap
     if dev < 0 or k.get_device() != dev or v.get_device() != dev:
@@ -88,7 +90,14 @@ def flash_prefill(q, k, v, window: int = 0):
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_prefill kernel: tensors must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif (out.shape != q.shape or out.dtype != q.dtype
+          or out.get_device() != dev or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"flash_prefill kernel: out must be a contiguous, "
+                         f"16-byte aligned {tuple(q.shape)} {q.dtype} tensor "
+                         f"on q's device")
     lib, fn = _entry()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, t, h, kvh, d, window, d ** -0.5, _DTYPES[q.dtype],

@@ -11,7 +11,8 @@ requests do not carry; see ``RealExecutor``).
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
 Prints each request's tokens and its wall-clock TTFT and latency, then a
 summary with the executor's decode passes and how many of them were
-replayed from a CUDA graph.
+replayed from a CUDA graph, and the prompts it computed and in how many
+prefill passes.
 """
 from __future__ import annotations
 
@@ -49,11 +50,12 @@ def build_engine(cfg, params, device="cuda", num_blocks: int = 1024,
     """RealExecutor + LLMEngine for ``cfg`` on ``device`` (roofline timing
     against the H100). The state families keep one cache slot per sequence
     and serve without prefix caching, as the reference's engine test of the
-    state executor does."""
+    state executor does. The executor packs a step's prompts into passes
+    of at most the engine's ``max_prefill_tokens``."""
     ex = RealExecutor(cfg, params, num_blocks=num_blocks,
                       block_size=block_size, hw=GPU_H100,
                       max_model_len=max_model_len, max_slots=max_num_seqs,
-                      device=device)
+                      device=device, max_prefill_tokens=max_prefill_tokens)
     return LLMEngine(cfg, ex, num_blocks=num_blocks, block_size=block_size,
                      max_num_seqs=max_num_seqs,
                      max_prefill_tokens=max_prefill_tokens,
@@ -139,7 +141,9 @@ def main(argv=None):
                       "device": str(device), "wall_s": wall,
                       "output_tokens": n, "tokens_per_s": n / wall,
                       "decode_steps": ex.decode_steps,
-                      "graph_decodes": ex.graph_decodes}))
+                      "graph_decodes": ex.graph_decodes,
+                      "prefill_computes": ex.prefill_computes,
+                      "prefill_passes": ex.prefill_passes}))
     if args.profile:
         print(json.dumps(device_time_by_kernel(prof, wall)))
 

@@ -426,6 +426,24 @@ def attention_prefill(p, cfg: ModelConfig, x, attention=None,
     return _out_proj(out, p["wo"]), k, v
 
 
+def attention_prefill_packed(p, cfg: ModelConfig, x, lengths, positions):
+    """``attention_prefill`` over several prompts packed one after another
+    in x (1, N, d), of ``lengths`` (summing to N), with no window: q and k
+    rotated at ``positions`` (N,), each token's position in its own prompt,
+    then one flash-prefill call a prompt on its slice of q, k
+    and v, written into one output, so that each prompt attends only to
+    itself. Returns (out, k_cache, v_cache), the caches (1, N, KV, D)
+    packed as x is."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = torch.empty_like(q)
+    s = 0
+    for n in lengths:
+        at = slice(s, s + n)
+        fp_ops.flash_prefill(q[:, at], k[:, at], v[:, at], out=out[:, at])
+        s += n
+    return _out_proj(out, p["wo"]), k, v
+
+
 def _window_cache(x, window: int):
     """The rolling-window cache of x (B, T, ...): its last ``window``
     positions at slot p % window, zero-padded to ``window`` slots when T is

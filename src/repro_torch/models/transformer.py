@@ -8,6 +8,8 @@ axis, and a Python loop over that axis takes the place of ``lax.scan``.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from repro_torch.config import ModelConfig
@@ -236,21 +238,39 @@ def prefill(params, cfg: ModelConfig, tokens, attention=None,
     return prefill_layers(params, cfg, x, ffn, attention)
 
 
-def prefill_layers(params, cfg: ModelConfig, x, ffn, attention=None):
+def prefill_layers(params, cfg: ModelConfig, x, ffn, attention=None,
+                   lengths=None, positions=None):
     """The layer stack of a prefill from the embeddings x (B, T, d), with
     ``ffn(lp, cfg, h)`` as each layer's feed-forward. Returns what
     ``prefill`` returns.
+
+    With ``lengths``, x (1, N, d) packs several prompts one after another,
+    of those lengths (summing to N), and ``positions`` (N,) holds each
+    token's position in its own prompt: every layer's norms, projections
+    and feed-forward run once over all N rows, and each prompt attends only
+    to itself through the flash-prefill op
+    (``common.attention_prefill_packed``; ``attention`` is not used). The
+    rotary tables are made in each layer, as the single-prompt pass makes
+    them: held through the layers they would add to the peak of a long
+    prompt's pass, which the MoE cell cannot spare. The logits are then each
+    prompt's last token's, (P, V), and the cache holds the prompts' K/V
+    packed as x is, (L, 1, N, KV, D).
 
     Each layer's K/V is copied into the stacked cache (allocated at the
     first layer) as soon as it is made and freed before the feed-forward
     runs: a long prompt's cache is held once, and no layer's piece stays
     inside a freed block of the feed-forward's larger temporaries, where it
     would keep the rest of that block from serving a later allocation."""
+    packed = lengths is not None
     cache = None
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, k, v = cm.attention_prefill(lp["attn"], cfg, h, attention)
+        if packed:
+            a, k, v = cm.attention_prefill_packed(lp["attn"], cfg, h, lengths,
+                                                  positions)
+        else:
+            a, k, v = cm.attention_prefill(lp["attn"], cfg, h, attention)
         if cache is None:
             cache = {name: t.new_empty((cfg.num_layers,) + tuple(t.shape))
                      for name, t in (("k", k), ("v", v))}
@@ -260,6 +280,11 @@ def prefill_layers(params, cfg: ModelConfig, x, ffn, attention=None):
         x = x + a
         h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(lp, cfg, h)
+    if packed:
+        ends = itertools.accumulate(lengths)
+        x = torch.cat([x[:, e - 1:e] for e in ends], dim=1)   # (1, P, d)
+        x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return cm.unembed(params["embedding"], x)[0], cache
     x = cm.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = cm.unembed(params["embedding"], x)[:, 0]
     return logits, cache

@@ -312,7 +312,7 @@ def test_moe_engine_on_card_matches_cpu(gen):
         while eng.has_work():
             now += max(eng.step(now).elapsed, 1e-4)
         outs[device] = [r.output_tokens for r in reqs]
-        passes = ex.decode_steps + ex.prefill_computes
+        passes = ex.decode_steps + ex.prefill_passes
         assert ex.moe_calls == cfg.num_layers * passes
         assert ex.graph_decodes == (ex.decode_steps if device == "cuda"
                                     else 0)

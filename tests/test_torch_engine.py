@@ -83,6 +83,27 @@ def test_paged_engine_matches_oracle(dense_setup, rng):
     assert ex.prefill_computes == 2 and ex.decode_steps > 0
 
 
+def test_packed_prompts_match_oracle(dense_setup, rng):
+    """Four prompts admitted in one step under a budget of 96 tokens: the
+    first three end there and are computed in one packed pass, the fourth
+    (60) ends in the next step, a pass alone; every request's greedy tokens
+    are the JAX oracle's."""
+    jcfg, jp, tcfg, tp = dense_setup
+    prompts = [list(rng.integers(1, jcfg.vocab_size, size=n))
+               for n in (11, 23, 7, 60)]
+    oracle = [oracle_generate(jcfg, jp, p, 6) for p in prompts]
+    ex = RealExecutor(tcfg, tp, num_blocks=256, block_size=16, hw=TPU_V5E,
+                      max_model_len=256, device="cpu", max_prefill_tokens=96)
+    eng = LLMEngine(tcfg, ex, num_blocks=256, block_size=16, max_num_seqs=8,
+                    max_prefill_tokens=96, max_model_len=256)
+    reqs = _greedy(prompts, 6)
+    run_engine(eng, reqs)
+    assert [r.output_tokens for r in reqs] == oracle
+    assert (ex.prefill_passes, ex.prefill_computes) == (2, 4)
+    eng.allocator.check_invariants()
+    assert eng.allocator.num_free() == 256
+
+
 def test_preemption_under_block_pressure(dense_setup, rng):
     # 3 seqs prefill into 15/16 blocks; decode growth forces eviction
     jcfg, jp, tcfg, tp = dense_setup

@@ -305,6 +305,31 @@ def test_moe_paged_engine_matches_oracle(rng):
     eng.allocator.check_invariants()
 
 
+def test_moe_packed_prompts_match_oracle(rng):
+    """Three prompts admitted in one step, computed in one packed pass of
+    60 rows, dropless (every expert may take all of them): every request's
+    greedy tokens are the JAX oracle's, each prompt routed alone there."""
+    jcfg, jp, tcfg, tp = _setup("qwen3-moe-30b-a3b")
+    prompts = [list(rng.integers(1, jcfg.vocab_size, size=n))
+               for n in (11, 40, 9)]
+    oracle = [_oracle_generate(jcfg, jp, p, 6) for p in prompts]
+    ex = RealExecutor(tcfg, tp, num_blocks=64, block_size=16, hw=TPU_V5E,
+                      max_model_len=256, device="cpu", max_prefill_tokens=64)
+    eng = LLMEngine(tcfg, ex, num_blocks=64, block_size=16, max_num_seqs=8,
+                    max_prefill_tokens=64, max_model_len=256)
+    reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(
+        temperature=0.0, max_new_tokens=6)) for p in prompts]
+    now = 0.0
+    for r in reqs:
+        eng.add_request(r, now)
+    while eng.has_work():
+        now += max(eng.step(now).elapsed, 1e-4)
+    assert [r.output_tokens for r in reqs] == oracle
+    assert (ex.prefill_passes, ex.prefill_computes) == (1, 3)
+    assert ex.moe_calls == tcfg.num_layers * (1 + ex.decode_steps)
+    eng.allocator.check_invariants()
+
+
 def test_executor_refuses_vlm():
     """The reference's executor passes no patch embeddings, so its vlm
     prefill fails; the port's says why before it starts."""

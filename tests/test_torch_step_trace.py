@@ -107,15 +107,20 @@ def test_counts_match_the_executor(models, name):
     launch = [s for s in spans if s.name == "executor.launch"]
     assert sum(s.attrs["kind"] == "decode" for s in launch) \
         == ex.decode_steps > 0
-    assert sum(s.attrs["kind"] == "prefill" for s in launch) \
+    prefill = [s for s in launch if s.attrs["kind"] == "prefill"]
+    assert len(prefill) == ex.prefill_passes
+    assert sum(s.attrs["prompts"] for s in prefill) \
         == ex.prefill_computes == len(reqs)
     # a pass's phases carry its kind, a decode's launch also the bucket
-    # replayed from a CUDA graph (0, eager, on the CPU); the rest carry none
+    # replayed from a CUDA graph (0, eager, on the CPU), a prefill's launch
+    # the prompts its pass computed; the rest carry none
     for s in spans:
         if s.name == "executor.launch" and s.attrs["kind"] == "decode":
             assert s.attrs == {"kind": "decode", "graph": 0}
-        elif s.name in ("executor.prepare", "executor.launch",
-                        "executor.to_host"):
+        elif s.name == "executor.launch":
+            assert s.attrs.keys() == {"kind", "prompts"}
+            assert s.attrs["prompts"] >= 1
+        elif s.name in ("executor.prepare", "executor.to_host"):
             assert s.attrs.keys() == {"kind"}
         else:
             assert s.attrs == {}
